@@ -1,22 +1,44 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's record-batch decode plane once through its user entry
-point, ``zstdsharp_tpu_torch.decode.frame.Decompressor().unwrap_many_device``,
-on the bench's workload (bench.py: the first 6 MB of ``make_corpus`` as 256
-records of 24 KB, each compressed at level 9) plus two 400 KB multi-block
-frames at level 3, one frame with a raw block and one with an RLE block
-(level 9).
+Drives the port's two record-batch paths once each through their user
+entry points:
+
+* decode: ``zstdsharp_tpu_torch.decode.frame.Decompressor().unwrap_many_device``
+  on the bench's decode workload (bench.py: the first 6 MB of
+  ``make_corpus`` as 256 records of 24 KB, each compressed at level 9) plus
+  two 400 KB multi-block frames at level 3, one frame with a raw block and
+  one with an RLE block (level 9);
+* encode: ``zstdsharp_tpu_torch.encode.device_pipeline.compress_batch_device``
+  on the bench's encode workload (bench.py: the first 4 MB of the same
+  corpus as 256 records of 16 KB) plus one 128 KB record (the top bucket),
+  one of 200 KB (routed to the host encoder), 9000 random bytes (raw
+  fallback), an empty record and ``b"ab" * 9000``.
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi) and the build of the CUDA kernels from csrc/;
   2. the Huffman kernel against its plain torch version on the card, on
-     the operands the native planner packs for the workload;
+     the operands the native planner packs for the decode workload;
   3. the same for the FSE kernel;
-  4. end to end: decoded bytes equal the inputs, none of the 256 records
-     is routed to the host, both kernels were launched by the run;
-  5. timings (printed, not asserted): each kernel and its plain version,
-     the pipeline's end-to-end and marginal GB/s and its stage times, and
-     the host decoder on the same frames.
+  4. decode end to end: decoded bytes equal the inputs, none of the 256
+     records is routed to the host, both decode kernels were launched;
+  5. decode timings (printed, not asserted): each kernel and its plain
+     version, the pipeline's end-to-end and marginal GB/s and its stage
+     times, and the host decoder on the same frames;
+  6. the histogram kernel against its plain torch version on the encode
+     workload's literal rows (the first chunk's [32, 16384] with their
+     prefix masks) and on an unmasked 1-D vector of odd length;
+  7. encode end to end: every frame decodes byte-exact with the host tier,
+     the 256 records' frames decode byte-exact through the port's decode
+     plane with none routed to the host, none of the 256 records is
+     routed to the host encoder, the first 32-record chunk's frames equal
+     the port's CPU run byte for byte, and the histogram kernel was
+     launched;
+  8. encode timings (printed, not asserted): marginal GB/s, stage times,
+     compressed bytes, and the host tier's level-1 compress on the same
+     records.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one CUDA device and exits non-zero, printing no result, when there
@@ -35,6 +57,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REC_SIZE = 24 << 10
 N_RECORDS = 256
+ENC_REC_SIZE = 16 << 10
 
 
 def _check(cond, what):
@@ -57,6 +80,12 @@ def _gpu_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def _timed(fn):
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
 def _first_block(frame: bytes):
     """(last-block flag, block type) of a frame's first block."""
     import numpy as np
@@ -68,14 +97,12 @@ def _first_block(frame: bytes):
     return bh & 1, (bh >> 1) & 3
 
 
-def _workload():
+def _workload(data):
     """(records, their frames, extra inputs, their frames)."""
     import numpy as np
 
-    from bench import make_corpus
     from zstdsharp_tpu.encode.frame import compress
 
-    data = make_corpus(8 << 20)
     recs = [data[i:i + REC_SIZE] for i in range(0, 6 << 20, REC_SIZE)]
     _check(len(recs) == N_RECORDS, "256 records of 24 KB")
     frames = [compress(r, 9) for r in recs]
@@ -133,6 +160,169 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, card):
     return err, ms, plain_ms
 
 
+def _kernel_wrappers():
+    from zstdsharp_tpu_torch.ops import device_fse, device_huf, histogram
+
+    return {"huf_decode": device_huf.decode_lanemajor,
+            "fse_decode": device_fse.decode_lanemajor,
+            "histogram": histogram.histogram_u8}
+
+
+def _reset_counts():
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {k: fn.launches for k, fn in _kernel_wrappers().items()}
+
+
+def _encode_workload(data):
+    """(the bench's 256 records of 16 KB, the coverage inputs)."""
+    import numpy as np
+
+    recs = [data[i:i + ENC_REC_SIZE] for i in range(0, 4 << 20, ENC_REC_SIZE)]
+    _check(len(recs) == N_RECORDS, "256 records of 16 KB")
+    base = 4 << 20
+    extras = [data[base:base + (128 << 10)],                # top bucket
+              data[base + (128 << 10):base + (328 << 10)],  # 200 KB: host
+              np.random.default_rng(9).integers(0, 256, 9000,
+                                                dtype=np.uint8).tobytes(),
+              b"", b"ab" * 9000]
+    return recs, extras
+
+
+def _hist_phase(lit_sorted, mask, odd, card):
+    """Histogram kernel vs plain version on the card: the literal rows with
+    their prefix masks, and an unmasked odd-length vector."""
+    import torch
+
+    from zstdsharp_tpu_torch.ops import histogram as hg
+
+    err = 0.0
+    for d, m in ((lit_sorted, mask), (odd, None)):
+        got = hg.histogram_u8(d, m)
+        torch.cuda.synchronize()
+        want = hg.histogram_plain(d, m)
+        torch.cuda.synchronize()
+        _check(got.shape == want.shape and got.dtype == torch.int32,
+               "histogram shape and dtype")
+        err = max(err, float((got.long() - want.long()).abs().max()))
+    _check(err == 0.0, "histogram kernel equals its plain version")
+    _check(int(hg.histogram_u8(lit_sorted, mask).sum())
+           == int(mask.sum()), "histogram counts every masked byte")
+    ms = _gpu_ms(lambda: hg.histogram_u8(lit_sorted, mask), 20)
+    plain_ms = _gpu_ms(lambda: hg.histogram_plain(lit_sorted, mask), 20)
+    odd_ms = _gpu_ms(lambda: hg.histogram_u8(odd), 20)
+    odd_plain = _gpu_ms(lambda: hg.histogram_plain(odd), 20)
+    print(f"phase histogram: kernel == plain on lit_sorted "
+          f"{tuple(lit_sorted.shape)} masked ({int(mask.sum())} literals) and "
+          f"on {odd.shape[0]} unmasked bytes (max_abs_err {err}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; odd vector kernel "
+          f"{odd_ms:.4f} ms, plain {odd_plain:.4f} ms on {card}")
+    return err, ms, plain_ms
+
+
+def _encode_phases(data, dev, card):
+    """Phases 6-8.  Returns ((max_abs_err, ms, plain_ms) of the histogram
+    kernel, its launches in the encode path)."""
+    import numpy as np
+    import torch
+
+    from zstdsharp_tpu.decode.frame import decompress
+    from zstdsharp_tpu.encode.frame import compress
+    from zstdsharp_tpu_torch.decode.frame import Decompressor
+    from zstdsharp_tpu_torch.encode.device_pipeline import (
+        LANES, compress_batch_device)
+    from zstdsharp_tpu_torch.ops import device_encode as de
+
+    recs, extras = _encode_workload(data)
+    print(f"encode workload: {len(recs)} records x {ENC_REC_SIZE} B, plus "
+          f"{[len(x) for x in extras]} B (128 KB bucket, host-routed, raw, "
+          f"empty, match-heavy)")
+
+    # ---- the histogram kernel at the main path's literal shapes ----
+    N = ENC_REC_SIZE
+    blocks = np.zeros((LANES, N), np.uint8)
+    for k, r in enumerate(recs[:LANES]):
+        blocks[k] = np.frombuffer(r, np.uint8)
+    nv = torch.full((LANES,), N, dtype=torch.int32, device=dev)
+    _, lit_sorted, lit_count, _, _ = de._parse_phase(
+        torch.from_numpy(blocks).to(dev), nv, de.seq_budget(N), 15)
+    mask = torch.arange(N, device=dev)[None, :] < lit_count[:, None].long()
+    odd = torch.from_numpy(np.frombuffer(data[:(4 << 20) + 1], np.uint8)
+                           .copy()).to(dev)
+    hist = _hist_phase(lit_sorted, mask, odd, card)
+
+    # ---- the encode path, once, through the user entry point ----
+    all_in = recs + extras
+    _reset_counts()
+    chunks, host = compress_batch_device(all_in, dev)
+    torch.cuda.synchronize()
+    launches = _counts()["histogram"]
+    _check(launches > 0, f"histogram kernel launched ({launches})")
+    _check(all(r.device == dev and ln.device == dev for _, r, ln in chunks),
+           "frame rows stay on the card")
+    frames = [None] * len(all_in)
+    for i, f in host.items():
+        frames[i] = f
+    for part, rows, lens in chunks:
+        h, ln = rows.cpu().numpy(), lens.cpu().numpy()
+        for k, i in enumerate(part):
+            frames[i] = h[k, :ln[k]].tobytes()
+    _check(not [i for i in host if i < N_RECORDS],
+           "no record is routed to the host encoder")
+    _check([decompress(f) for f in frames] == all_in,
+           "every frame decodes byte-exact with the host tier")
+    outs, lens, dhost = Decompressor().unwrap_many_device(frames[:N_RECORDS],
+                                                          dev)
+    torch.cuda.synchronize()
+    got = _frame_bytes(N_RECORDS, outs, lens, dhost)
+    _check(got == recs, "the records' frames decode byte-exact through the "
+           "port's decode plane")
+    _check(not dhost, f"decode planner routes {len(dhost)} frames to the "
+           "host")
+    cpu_frames, _ = compress_batch_device(recs[:LANES], "cpu",
+                                          materialize=True)
+    _check(cpu_frames == frames[:LANES],
+           "the first chunk's frames equal the port's CPU run")
+    csize = sum(map(len, frames[:N_RECORDS]))
+    print(f"phase encode: {len(all_in)} records via compress_batch_device on "
+          f"{torch.cuda.get_device_name(0)}: every frame decodes byte-exact "
+          f"(host tier); {N_RECORDS} record frames byte-exact through "
+          f"unwrap_many_device, decode host-routed {len(dhost)}; host-encoded "
+          f"{sorted(host)} (records: 0); first {LANES} frames == CPU port; "
+          f"histogram launches {launches}; records {sum(map(len, recs))} B "
+          f"-> {csize} B")
+
+    # ---- timings ----
+    payload = sum(map(len, recs))
+
+    def run_encode():
+        ch, _ = compress_batch_device(recs, dev)
+        torch.cuda.synchronize()
+        return ch
+
+    run_encode()
+    pairs = sorted((_timed(lambda: [run_encode() for _ in range(3)])
+                    - _timed(run_encode)) / 2 for _ in range(3))
+    marg = max(pairs[1], 1e-9)
+    e2e = sorted(_timed(run_encode) for _ in range(3))[1]
+    stages = {}
+    compress_batch_device(recs, dev, timings=stages)
+    host_s = sorted(_timed(lambda: [compress(r, 1) for r in recs])
+                    for _ in range(3))[1]
+    host_size = sum(len(compress(r, 1)) for r in recs)
+    print(f"phase encode timings: {payload} B in {N_RECORDS} records: "
+          f"marginal {payload / marg / 1e9:.4f} GB/s ({marg * 1e3:.2f} ms), "
+          f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} ms); "
+          f"stages ms { {k: round(v * 1e3, 3) for k, v in stages.items()} }; "
+          f"compressed {csize} B; host compress L1 "
+          f"{payload / host_s / 1e9:.4f} GB/s ({host_s * 1e3:.2f} ms) -> "
+          f"{host_size} B on {card}")
+    return hist, launches
+
+
 def main() -> int:
     if not (ROOT / "zstdsharp_tpu_torch").is_dir():
         print("chip_smoke.py: zstdsharp_tpu_torch/ not found beside this "
@@ -170,7 +360,10 @@ def main() -> int:
           f"{'built in %.2f s' % built if built is not None else 'up to date'}"
           f", loaded after {time.perf_counter() - t0:.2f} s; {regs}")
 
-    recs, frames, extras, extra_frames = _workload()
+    from bench import make_corpus
+
+    data = make_corpus(8 << 20)
+    recs, frames, extras, extra_frames = _workload(data)
     print(f"workload: {len(frames)} records x {REC_SIZE} B at level 9 -> "
           f"{sum(map(len, frames))} B, plus {len(extra_frames)} frames "
           f"(2 x 400 KB multi-block L3, raw block, RLE block)")
@@ -183,15 +376,14 @@ def main() -> int:
     huf = _kernel_phase("huf_decode", dh, hops, lambda o: (o,), "nsym", card)
     fse = _kernel_phase("fse_decode", df, fops, lambda o: o, "nseq", card)
 
-    # ---- the main path, once, through the user entry point ----
+    # ---- the decode path, once, through the user entry point ----
     all_in = recs + extras
     all_frames = frames + extra_frames
-    dh.decode_lanemajor.launches = 0
-    df.decode_lanemajor.launches = 0
+    _reset_counts()
     outs, lens, host = Decompressor().unwrap_many_device(all_frames, dev)
     torch.cuda.synchronize()
-    launches = {"huf_decode": dh.decode_lanemajor.launches,
-                "fse_decode": df.decode_lanemajor.launches}
+    counts = _counts()
+    launches = {k: counts[k] for k in ("huf_decode", "fse_decode")}
     got = _frame_bytes(len(all_frames), outs, lens, host)
     host_routed = [fi for fi, v in host.items() if isinstance(v, bytes)]
     _check(got == all_in, "decoded bytes equal the inputs")
@@ -213,19 +405,14 @@ def main() -> int:
         torch.cuda.synchronize()
         return len(h)
 
-    def timed(fn):
-        t = time.perf_counter()
-        fn()
-        return time.perf_counter() - t
-
     run_pipeline()
-    pairs = sorted((timed(lambda: [run_pipeline() for _ in range(3)])
-                    - timed(run_pipeline)) / 2 for _ in range(3))
+    pairs = sorted((_timed(lambda: [run_pipeline() for _ in range(3)])
+                    - _timed(run_pipeline)) / 2 for _ in range(3))
     marg = max(pairs[1], 1e-9)
-    e2e = sorted(timed(run_pipeline) for _ in range(3))[1]
+    e2e = sorted(_timed(run_pipeline) for _ in range(3))[1]
     stages = {}
     dp.decode_batch_device(frames, dev, timings=stages)
-    host_s = timed(lambda: [decompress(f) for f in frames])
+    host_s = _timed(lambda: [decompress(f) for f in frames])
     print(f"phase timings: pipeline {payload} B in {N_RECORDS} frames: "
           f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} ms), "
           f"marginal {payload / marg / 1e9:.4f} GB/s ({marg * 1e3:.2f} ms); "
@@ -233,10 +420,14 @@ def main() -> int:
           f"host decompress {payload / host_s / 1e9:.4f} GB/s "
           f"({host_s * 1e3:.2f} ms) on {card}")
 
+    hist, hist_launches = _encode_phases(data, dev, card)
+    launches["histogram"] = hist_launches
+
     kernels = []
     for name, (err, ms, plain_ms), src, rep in (
             ("huf_decode", huf, "huf_decode.cu", "device_huf.py:238"),
-            ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292")):
+            ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
+            ("histogram", hist, "histogram.cu", "histogram.py:36")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"zstdsharp_tpu_torch/csrc/{src}",
                         "replaces": f"zstdsharp_tpu/ops/{rep}",

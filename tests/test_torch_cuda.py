@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain torch
-version, and the decode plane on the card against its CPU run.
+version, and the decode and encode planes on the card against their CPU
+runs.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import neither JAX
 nor zstandard, so they also run on a machine that has neither:
@@ -15,8 +16,10 @@ from zstdsharp_tpu.decode.frame import decompress
 from zstdsharp_tpu.encode.frame import compress
 from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor
+from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
+from zstdsharp_tpu_torch.ops import histogram as hg
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +136,46 @@ def test_last_sequence_reading_no_bits_on_card(cuda):
                                             materialize=True)
     assert results == [decompress(EARLY_END_FRAME)]
     assert stats == {"device_frames": 1, "host_frames": 0}
+
+
+@pytest.mark.parametrize("shape,masked", [((32, 16384), True),
+                                          ((32, 16384), False),
+                                          ((1_000_003,), False),
+                                          ((3, 5), True)])
+def test_histogram_kernel_equals_plain(cuda, shape, masked):
+    rng = np.random.default_rng(sum(shape))
+    text = np.frombuffer(b"etaoin shrdlu", np.uint8)
+    data = np.where(rng.random(shape) < 0.9, rng.choice(text, shape),
+                    rng.integers(0, 256, shape)).astype(np.uint8)
+    d = torch.from_numpy(data).to(cuda)
+    m = None
+    if masked:
+        count = torch.from_numpy(rng.integers(0, shape[-1] + 1, shape[:-1]))
+        m = (torch.arange(shape[-1])[None, :] < count[:, None]).to(cuda)
+    before = hg.histogram_u8.launches
+    got = hg.histogram_u8(d, m)
+    torch.cuda.synchronize()
+    assert hg.histogram_u8.launches == before + 1
+    assert torch.equal(got, hg.histogram_plain(d, m))
+
+
+def test_encode_on_card_equals_cpu(cuda):
+    recs = _records(40, 3_000, 61) + _records(3, 15_000, 62) + [
+        np.random.default_rng(63).integers(0, 256, 9000,
+                                           dtype=np.uint8).tobytes(),
+        b"ab" * 9000, b"", _records(1, 131_072, 64)[0],
+        _records(1, 200_000, 65)[0]]
+    before = hg.histogram_u8.launches
+    chunks, host = compress_batch_device(recs, cuda)
+    torch.cuda.synchronize()
+    assert hg.histogram_u8.launches > before
+    assert list(host) == [len(recs) - 1]
+    assert all(r.device.type == "cuda" for _, r, _ in chunks)
+    frames, stats = compress_batch_device(recs, cuda, materialize=True)
+    c_frames, c_stats = compress_batch_device(recs, "cpu", materialize=True)
+    assert stats == c_stats == {"device_frames": len(recs) - 1,
+                                "host_frames": 1}
+    assert frames == c_frames
+    assert [decompress(f) for f in frames] == recs
+    results, _ = dp.decode_batch_device(frames[:43], cuda, materialize=True)
+    assert results == recs[:43]

@@ -27,7 +27,10 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import zstdsharp_tpu_torch\n"
         "from zstdsharp_tpu_torch import _build\n"
         "from zstdsharp_tpu_torch.decode import device_pipeline, frame\n"
+        "from zstdsharp_tpu_torch.encode import device_pipeline as enc\n"
         "from zstdsharp_tpu_torch.ops import device_fse, device_huf, execseq\n"
+        "from zstdsharp_tpu_torch.ops import common, device_encode, histogram\n"
+        "from zstdsharp_tpu_torch.ops import matcher\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised'\n"
         "assert _build._lib is None, 'kernels loaded at import'\n"
@@ -42,7 +45,7 @@ def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     files = sorted((ROOT / "zstdsharp_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 8
+    assert len(files) >= 14
     for f in files:
         assert not pat.search(f.read_text()), f
 

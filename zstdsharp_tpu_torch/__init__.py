@@ -1,10 +1,13 @@
-"""PyTorch/CUDA port of the zstdsharp_tpu device decode plane.
+"""PyTorch/CUDA port of the zstdsharp_tpu device decode and encode planes.
 
 The record-batch decode path (``decode.frame.Decompressor.unwrap_many_device``
 -> ``decode.device_pipeline.decode_batch_device``) runs on an NVIDIA GPU
 through hand-written CUDA kernels for Huffman literal decode and FSE
-sequence decode (``csrc/``), with the LZ executor in torch.  On CPU tensors
-every kernel wrapper runs its plain torch version instead.
+sequence decode (``csrc/``), with the LZ executor in torch.  The
+record-batch encode path (``encode.device_pipeline.compress_batch_device``)
+runs the greedy parse, FSE and Huffman coding and frame assembly in torch,
+with its literal byte histogram as a hand-written CUDA kernel.  On CPU
+tensors every kernel wrapper runs its plain torch version instead.
 
 The host tiers (frame parsing, entropy tables, the native planner) are
 imported unchanged from ``zstdsharp_tpu``; nothing here imports JAX.

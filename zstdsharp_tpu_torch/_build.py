@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface (pointers, ints and a
-``cudaStream_t`` passed as ``void*``), so they compile in seconds into one
-shared library without PyTorch's headers::
+``cudaStream_t`` passed as ``void*``), so they compile in seconds without
+PyTorch's headers.  One nvcc per source runs at once, then one links::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libzt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o build/<name>.o csrc/<name>.cu   # each
+    nvcc -shared -o build/libzt_kernels.so build/*.o
 
 The library goes into ``build/`` at the repository root (ignored by git)
 and is rebuilt when any source is newer.  Nothing is built or loaded at
@@ -24,10 +25,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("huf_decode.cu", "fse_decode.cu")
+SOURCES = ("huf_decode.cu", "fse_decode.cu", "histogram.cu")
 LIB_PATH = BUILD_DIR / "libzt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -58,19 +59,48 @@ def _stale() -> bool:
     return any((CSRC / s).stat().st_mtime > built for s in SOURCES)
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands at once; raise if any fails.  Returns their
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    try:
+        for c, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=600)
+            logs.append(out)
+            if p.returncode != 0:
+                failed.append(f"{' '.join(c)} ({p.returncode}):\n{out}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "".join(logs)
+
+
 def _build() -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                          *(str(o) for o in objs)]])
+        os.replace(tmp, LIB_PATH)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)
+        for o in objs:
+            o.unlink(missing_ok=True)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = r.stdout + r.stderr
+    BuildInfo.log = log
 
 
 def load() -> ctypes.CDLL:
@@ -87,5 +117,7 @@ def load() -> ctypes.CDLL:
         lib.zt_huf_decode.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, p]
         lib.zt_fse_decode.restype = i
         lib.zt_fse_decode.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, p]
+        lib.zt_histogram.restype = i
+        lib.zt_histogram.argtypes = [p, p, i, ctypes.c_longlong, p, p]
         _lib = lib
         return lib

@@ -6,13 +6,13 @@ import torch
 
 
 def check_operand(name: str, t: torch.Tensor, shape: tuple,
-                  device: torch.device) -> None:
-    """Raise unless t is a contiguous int32 tensor of `shape` on `device`
-    (a None entry in `shape` accepts any positive size)."""
+                  device: torch.device, dtype=torch.int32) -> None:
+    """Raise unless t is a contiguous tensor of `dtype` and `shape` on
+    `device` (a None entry in `shape` accepts any positive size)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dim() != len(shape) or any(

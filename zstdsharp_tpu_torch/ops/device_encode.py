@@ -1,0 +1,650 @@
+"""Device batch encoder in torch: greedy parse -> FSE-coded sequences and
+Huffman literals -> one standard zstd frame row per record (counterpart of
+zstdsharp_tpu/ops/device_encode.py).
+
+Three phases per batch of B padded records ``[B, N]``, as the reference:
+
+1. parse (device): ``matcher.parse_blocks_ptrjump``, literal compaction by
+   one sort per row, the literal byte histogram through
+   ``histogram.histogram_u8`` (the CUDA kernel on a GPU) and the 36/32/53
+   bin sequence-code histograms (plain torch);
+2. tables (host): one copy of every count to the host -- the batch's only
+   host synchronisation -- then the reference's numpy table builders
+   (canonical Huffman literal tables, fresh/RLE/predefined FSE tables at
+   the default logs), uploaded once;
+3. assembly (device): every FSE encoder state at once by composing the
+   per-symbol permutation maps (64-step chunks, then a log-depth suffix
+   composition over chunks), the sequence and 4-stream Huffman bitstreams
+   through the prefix-scan packer, and a byte-position classifier that
+   writes the frame row.
+
+The reference vmaps one-lane functions; here the lane axis is the leading
+dimension of every tensor.  Integer semantics are the reference's with
+JAX's x64 mode off (see ``ops.common``): u32 quantities live in int64
+tensors.  Nothing here synchronises with the host except step 2.
+
+The host builders (``_tables``, ``_symbol_maps``, ``_build_lit_tables``,
+``_build_seq_tables``, ``seq_budget``, ``word_budget``) and the constants
+are copied from the reference, because importing ``zstdsharp_tpu.ops``
+imports JAX; they call the JAX-free host tiers ``zstdsharp_tpu.entropy``
+and ``zstdsharp_tpu.constants``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from zstdsharp_tpu import constants as C
+from zstdsharp_tpu.entropy import fse
+
+from .common import U32, highbit, pack_bits_device
+from .histogram import histogram_u8
+from .matcher import parse_blocks_ptrjump
+
+MINMATCH = 3  # format minimum (the parse emits >= 4)
+
+
+# ---------------------------------------------------------------------------
+# Host-built constants: predefined encode tables + code LUTs
+# ---------------------------------------------------------------------------
+
+_CONST_CACHE: dict = {}
+
+
+def _tables():
+    """Predefined FSE encode tables (RFC8878 defaults) + code LUTs, as
+    numpy constants."""
+    if "t" in _CONST_CACHE:
+        return _CONST_CACHE["t"]
+    ll = fse.build_ctable(C.LL_DEFAULT_NORM, C.MAX_LL, C.LL_DEFAULT_NORM_LOG)
+    ml = fse.build_ctable(C.ML_DEFAULT_NORM, C.MAX_ML, C.ML_DEFAULT_NORM_LOG)
+    of = fse.build_ctable(C.OF_DEFAULT_NORM, C.DEFAULT_MAX_OFF,
+                          C.OF_DEFAULT_NORM_LOG)
+
+    def pack(ct):
+        d = {
+            "tlog": int(ct.table_log),
+            "dnb": np.asarray(ct.delta_nb_bits, np.int64).astype(np.int32),
+            "dfs": np.asarray(ct.delta_find_state, np.int32),
+            # state numbers relative to table start (u in [0, TS))
+            "st": (np.asarray(ct.state_table, np.int64)
+                   - (1 << ct.table_log)).astype(np.int32),
+        }
+        d["maps"], d["nbs"], d["init"] = _symbol_maps(d)
+        return d
+
+    # value -> code LUTs (ZSTD_LLcode/ZSTD_MLcode small-value tables)
+    ll_lut = (np.searchsorted(C.LL_BASE, np.arange(64), side="right")
+              - 1).astype(np.int32)
+    mlv = np.arange(128) + MINMATCH
+    ml_lut = (np.searchsorted(C.ML_BASE, mlv, side="right") - 1).astype(np.int32)
+    t = {
+        "ll": pack(ll), "ml": pack(ml), "of": pack(of),
+        "ll_lut": ll_lut, "ml_lut": ml_lut,
+        "ll_bits": C.LL_BITS.astype(np.int32),
+        "ml_bits": C.ML_BITS.astype(np.int32),
+    }
+    _CONST_CACHE["t"] = t
+    return t
+
+
+def _symbol_maps(stream):
+    """[NSYM, TS] next-state permutation + emitted-bit-count tables and
+    the [NSYM] init states: the per-symbol FSE transition precomputed
+    over every state, so the device builds its scan operands with one
+    row-gather instead of in-kernel arithmetic + table probes."""
+    tlog = stream["tlog"]
+    TS = 1 << tlog
+    dnb = stream["dnb"].astype(np.int64)
+    dfs = stream["dfs"].astype(np.int64)
+    st = stream["st"].astype(np.int64)
+    u = np.arange(TS)[None, :]
+    val = TS + u
+    nb = (val + dnb[:, None]) >> 16
+    nxt = st[np.clip((val >> nb) + dfs[:, None], 0, TS - 1)]
+    # FSE_initCState2 per symbol (pure function of the table)
+    nb0 = (dnb + (1 << 15)) >> 16
+    v0 = (nb0 << 16) - dnb
+    init = st[np.clip((v0 >> nb0) + dfs, 0, TS - 1)]
+    return nxt.astype(np.int32), nb.astype(np.uint8), init.astype(np.int32)
+
+
+_DEV_CACHE: dict = {}
+
+
+def _dev_consts(device: torch.device) -> dict:
+    """``_tables()``'s code LUTs and the frame magic as int64 tensors on
+    `device`, uploaded once per device."""
+    key = str(device)
+    if key not in _DEV_CACHE:
+        t = _tables()
+
+        def up(a):
+            return torch.from_numpy(np.asarray(a)).to(device=device,
+                                                      dtype=torch.int64)
+
+        d = {k: up(t[k]) for k in ("ll_lut", "ml_lut", "ll_bits", "ml_bits")}
+        d["magic"] = up([0x28, 0xB5, 0x2F, 0xFD, 0xA0])  # magic | FHD 0xA0
+        _DEV_CACHE[key] = d
+    return _DEV_CACHE[key]
+
+
+def _codes_from_values(ll, mlv, ofb, lut):
+    """ZSTD_seqToCodes: (litLen, matchLen-3, offBase) -> (llCode, mlCode,
+    ofCode), int64."""
+    ll_code = torch.where(ll > 63, highbit(ll) + 19,
+                          lut["ll_lut"][ll.clamp(0, 63)])
+    ml_code = torch.where(mlv > 127, highbit(mlv) + 36,
+                          lut["ml_lut"][mlv.clamp(0, 127)])
+    return ll_code, ml_code, highbit(ofb)
+
+
+def _seq_values(starts, mls, offs, nseq):
+    """Per-sequence (real, litLen, matchLen-3, offBase) of each row, int64
+    [B, S].  An offset equal to the previous sequence's, with literals in
+    between, is repcode 1 (rep0): zero extra bits."""
+    B, S = starts.shape
+    i = torch.arange(S, device=starts.device)
+    real = i < nseq.to(torch.int64)[:, None]
+    st, ml, of = starts.to(torch.int64), mls.to(torch.int64), offs.to(torch.int64)
+    zero = torch.zeros(B, 1, dtype=torch.int64, device=starts.device)
+    prev_end = torch.cat([zero, (st + ml)[:, :-1]], 1)
+    ll = torch.where(real, st - prev_end, 0)
+    mlv = torch.where(real, ml - MINMATCH, 0)
+    prev_off = torch.cat([zero, of[:, :-1]], 1)
+    rep0 = (i > 0) & (of == prev_off) & (ll > 0)
+    ofb = torch.where(real, torch.where(rep0, 1, of + 3), 1)
+    return real, ll, mlv, ofb
+
+
+def _code_hist(codes, real, n_sym):
+    """[B, n_sym] int32 counts of the real sequences' codes (codes outside
+    [0, n_sym) count nowhere, as the reference's compare-reduce)."""
+    ok = (codes >= 0) & (codes < n_sym)
+    out = torch.zeros(codes.shape[0], n_sym + 1, dtype=torch.int32,
+                      device=codes.device)
+    out.scatter_add_(1, torch.where(ok, codes, n_sym), real.to(torch.int32))
+    return out[:, :n_sym]
+
+
+# ---------------------------------------------------------------------------
+# FSE state chain via permutation-map suffix composition
+# ---------------------------------------------------------------------------
+
+_G = 64  # maps composed serially within a chunk
+
+
+def _fse_stream_states(codes, nseq, stream, tables=None):
+    """All encoder states of one FSE stream of every row at once.
+
+    codes: [B, S] code symbols per sequence (garbage beyond nseq); nseq
+    [B].  `tables` optionally overrides the predefined encode table with
+    per-row (maps [B, NSYM, TS] int32, nbs [B, NSYM, TS] uint8, init
+    [B, NSYM] int32) of the SAME table log.  Returns (emit_val [B, S],
+    emit_nb [B, S], flush_val [B]), int64: slot i holds the state bits
+    written when encoding symbol i (zero-width for i >= nseq-1), flush_val
+    the final tableLog-bit state field.
+
+    Each symbol's transition is a permutation map over the TS states, so
+    the chain is a composition of maps, taken back to front: 64-step
+    serial compositions within chunks (all chunks at once), then a
+    log-depth suffix composition over the chunk composites.  Composition
+    is associative, so this gives the reference's integers exactly.  Maps
+    stay int32 ([B, S, TS] is 215 MB per stream at the 128 KB bucket);
+    only gather indices are widened.
+    """
+    B, S = codes.shape
+    dev = codes.device
+    TS = 1 << stream["tlog"]
+    if tables is None:
+        tables = tuple(torch.from_numpy(stream[k]).to(dev).expand(
+            B, *stream[k].shape) for k in ("maps", "nbs", "init"))
+    sym_maps, sym_nbs, sym_init = tables
+    nsym = sym_maps.shape[1]
+    i64 = torch.int64
+    i = torch.arange(S, device=dev)
+    ns = nseq.to(i64)[:, None]
+    c = codes.to(i64).clamp(0, nsym - 1)
+
+    # init state from the LAST real symbol (FSE_initCState2, host-built)
+    c_last = torch.gather(c, 1, (ns - 1).clamp(0, S - 1))
+    u_init = torch.gather(sym_init.to(i64), 1, c_last)            # [B, 1]
+
+    # per-symbol permutation maps, one row-gather; identity past nseq-2
+    rows = (torch.arange(B, device=dev)[:, None] * nsym + c).reshape(-1)
+    nxt = sym_maps.reshape(B * nsym, TS)[rows].reshape(B, S, TS)
+    u = torch.arange(TS, dtype=torch.int32, device=dev)
+    S_pad = -(-S // _G) * _G
+    NC = S_pad // _G
+    maps = torch.empty(B, S_pad, TS, dtype=torch.int32, device=dev)
+    maps[:] = u
+    maps[:, :S] = torch.where((i <= ns - 2)[:, :, None], nxt, u)
+    mc = maps.reshape(B, NC, _G, TS)
+
+    # within-chunk suffix trajectories wc[c, g](x) = M_g(M_{g+1}(...(x)))
+    wc = torch.empty_like(mc)
+    carry = u.expand(B, NC, TS)
+    for g in range(_G - 1, -1, -1):
+        carry = torch.gather(mc[:, :, g], 2, carry.to(i64))
+        wc[:, :, g] = carry
+
+    # suffix composites over chunks, comp[c](x) = cm[c](cm[c+1](...(x))),
+    # by doubling; entry[c] = state entering chunk c from the right
+    comp = wc[:, :, 0]
+    step = 1
+    while step < NC:
+        head = torch.gather(comp[:, :-step], 2, comp[:, step:].to(i64))
+        comp = torch.cat([head, comp[:, NC - step:]], 1)
+        step *= 2
+    entry = torch.cat([torch.gather(comp[:, 1:], 2,
+                                    u_init[:, :, None].expand(B, NC - 1, 1)
+                                    )[:, :, 0].to(i64), u_init], 1)  # [B, NC]
+
+    # state AFTER encoding symbol i: u_i = wc[chunk(i), pos(i)][entry];
+    # the emission at step i uses the INCOMING state u_{i+1}
+    u_all = torch.gather(wc, 3, entry[:, :, None, None].expand(B, NC, _G, 1)
+                         ).reshape(B, S_pad)[:, :S].to(i64)
+    u_next = torch.cat([u_all[:, 1:], torch.zeros_like(u_all[:, :1])], 1)
+
+    emit_val = TS + u_next
+    nb = torch.gather(sym_nbs.reshape(B, nsym * TS), 1, c * TS + u_next)
+    emit_nb = torch.where(i <= ns - 2, nb.to(i64), 0)
+    flush_val = torch.where(ns[:, 0] > 0, u_all[:, 0], 0)
+    return emit_val, emit_nb, flush_val
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 (device): parse, literal compaction, histograms
+# ---------------------------------------------------------------------------
+
+
+def _parse_phase(blocks, n_valid, S: int, hash_log: int):
+    """Greedy parse + literal compaction + literal and code histograms.
+    Returns (parsed, lit_sorted uint8 [B, N], lit_count int32 [B],
+    lit_hist int32 [B, 256], (ll [B, 36], of [B, 32], ml [B, 53]) int32)."""
+    B, N = blocks.shape
+    dev = blocks.device
+    nv = n_valid.to(torch.int64)
+    parsed = parse_blocks_ptrjump(blocks, nv, hash_log, S, 8, 8)
+
+    # literals first, in position order: one sort on unique keys per row
+    idx = torch.arange(N, device=dev)
+    drop = parsed["covered"] | (idx >= nv[:, None])
+    key = drop.to(torch.int64) * N + idx
+    lit_sorted = torch.gather(blocks, 1, torch.sort(key, dim=1).indices)
+    i = torch.arange(S, device=dev)
+    real_mls = torch.where(i < parsed["nseq"].to(torch.int64)[:, None],
+                           parsed["mls"].to(torch.int64), 0)
+    lit_count = nv - real_mls.sum(1)
+    lit_hist = histogram_u8(lit_sorted, mask=idx < lit_count[:, None])
+
+    real, ll, mlv, ofb = _seq_values(parsed["starts"], parsed["mls"],
+                                     parsed["offs"], parsed["nseq"])
+    llc, mlc, ofc = _codes_from_values(ll, mlv, ofb, _dev_consts(dev))
+    hists = (_code_hist(llc, real, 36), _code_hist(ofc, real, 32),
+             _code_hist(mlc, real, 53))
+    return parsed, lit_sorted, lit_count.to(torch.int32), lit_hist, hists
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 (host): table builders, copied from the reference
+# ---------------------------------------------------------------------------
+
+DESC_MAX = 160   # serialized Huffman table descriptor cap
+
+
+def _build_lit_tables(lit_hist: np.ndarray, lit_count: np.ndarray):
+    """Host middle phase: canonical Huffman tables per lane from device
+    histograms (HUF_buildCTable/HUF_writeCTable role).  Returns
+    (codes [B,256] u32, nbits [B,256] u32, desc [B,DESC_MAX] u8,
+    desc_len [B] i32, huf_ok [B] bool)."""
+    from zstdsharp_tpu.entropy import huffman
+
+    B = lit_hist.shape[0]
+    codes = np.zeros((B, 256), np.uint32)
+    nbits = np.zeros((B, 256), np.uint32)
+    desc = np.zeros((B, DESC_MAX), np.uint8)
+    desc_len = np.zeros(B, np.int32)
+    huf_ok = np.zeros(B, bool)
+    for b in range(B):
+        n = int(lit_count[b])
+        counts = lit_hist[b]
+        nz = np.nonzero(counts)[0]
+        if n < 64 or len(nz) < 2 or int(counts.max()) >= n:
+            continue  # raw/RLE territory
+        try:
+            ct = huffman.build_ctable(counts, int(nz[-1]), 11)
+            d = huffman.write_ctable(ct)
+        except Exception:
+            continue
+        if len(d) > DESC_MAX:
+            continue
+        codes[b, :ct.max_symbol + 1] = ct.code
+        nbits[b, :ct.max_symbol + 1] = ct.nb_bits
+        desc[b, :len(d)] = np.frombuffer(d, np.uint8)
+        desc_len[b] = len(d)
+        huf_ok[b] = True
+    return codes, nbits, desc, desc_len, huf_ok
+
+
+TBL_MAX = 128   # per-lane sequence-tables area cap (3 NCounts)
+
+
+def _build_seq_tables(hists, nseq: np.ndarray, t):
+    """Host middle phase: per-lane FSE tables from device code histograms
+    (ZSTD_selectEncodingType + FSE_normalizeCount role, restricted to the
+    DEFAULT table logs so every device shape stays static).  Per channel:
+    fresh FSE (mode 2) when it pays, RLE (mode 1) for single-symbol
+    streams, predefined (mode 0) otherwise."""
+    chans = (("ll", 0, 35), ("of", 1, 31), ("ml", 2, 52))
+    B = nseq.shape[0]
+    mode = np.zeros((B, 3), np.int32)
+    tbl = np.zeros((B, TBL_MAX), np.uint8)
+    tbl_len = np.zeros(B, np.int32)
+    out = {}
+    for name, ci, max_code in chans:
+        st_def = t[name]
+        nsym = st_def["dnb"].shape[0]
+        TS = 1 << st_def["tlog"]
+        maps = np.broadcast_to(st_def["maps"], (B, nsym, TS)).copy()
+        nbs = np.broadcast_to(st_def["nbs"], (B, nsym, TS)).copy()
+        init = np.broadcast_to(st_def["init"], (B, nsym)).copy()
+        flush = np.full(B, st_def["tlog"], np.int32)
+        out[name] = (maps, nbs, init, flush)
+    for b in range(B):
+        n = int(nseq[b])
+        if n < 32:
+            continue
+        parts = []
+        ok_modes = [0, 0, 0]
+        for name, ci, max_code in chans:
+            counts = np.asarray(hists[ci][b], np.int64)
+            nz = np.nonzero(counts)[0]
+            st_def = _tables()[name]
+            if len(nz) == 1:
+                ok_modes[ci] = 1
+                parts.append(bytes([int(nz[0])]))
+                out[name][0][b] = 0      # zero-width channel
+                out[name][1][b] = 0
+                out[name][2][b] = 0
+                out[name][3][b] = 0
+                continue
+            try:
+                max_sym = int(nz[-1])
+                tlog = st_def["tlog"]
+                norm = fse.normalize_count(counts[:max_sym + 1], tlog,
+                                           n, max_sym, False)
+                hdr = fse.write_ncount(norm, max_sym, tlog)
+                ct = fse.build_ctable(norm, max_sym, tlog)
+            except Exception:
+                continue
+            ok_modes[ci] = 2
+            parts.append(hdr)
+            fresh = {
+                "tlog": tlog,
+                "dnb": np.asarray(ct.delta_nb_bits, np.int64).astype(
+                    np.int32),
+                "dfs": np.asarray(ct.delta_find_state, np.int32),
+                "st": (np.asarray(ct.state_table, np.int64)
+                       - (1 << tlog)).astype(np.int32),
+            }
+            fm, fn_, fi = _symbol_maps(fresh)
+            out[name][0][b, :max_sym + 1] = fm
+            out[name][1][b, :max_sym + 1] = fn_
+            out[name][2][b, :max_sym + 1] = fi
+        area = b"".join(parts)
+        if len(area) > TBL_MAX or all(m == 0 for m in ok_modes):
+            # roll back to predefined for this lane
+            for name, ci, _mc in chans:
+                st_def = _tables()[name]
+                out[name][0][b] = st_def["maps"]
+                out[name][1][b] = st_def["nbs"]
+                out[name][2][b] = st_def["init"]
+                out[name][3][b] = st_def["tlog"]
+            continue
+        # channels that stayed predefined emit nothing in the area
+        mode[b] = ok_modes
+        tbl[b, :len(area)] = np.frombuffer(area, np.uint8)
+        tbl_len[b] = len(area)
+    mode_byte = (mode[:, 0] << 6) | (mode[:, 1] << 4) | (mode[:, 2] << 2)
+    return out, mode_byte.astype(np.int32), tbl, tbl_len
+
+
+def seq_budget(n: int) -> int:
+    """Max sequences the encoder plans for an n-byte block (word-like
+    text emits one match per ~6 bytes; the format ceiling is n/4 — /5
+    keeps the cap from truncating real parses into literals)."""
+    return max(16, n // 5)
+
+
+def word_budget(s: int) -> int:
+    """Bitstream u32 capacity for S sequences: <= 17 state bits + 49
+    extra bits per sequence, + 24 flush/end bits."""
+    return (66 * s + 24 + 31) // 32 + 2
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (device): frame assembly
+# ---------------------------------------------------------------------------
+
+
+def _le_bytes(words, k):
+    """[..., M] values -> [..., M*k] little-endian bytes (int64)."""
+    sh = 8 * torch.arange(k, device=words.device)
+    return ((words[..., None] >> sh) & 0xFF).reshape(*words.shape[:-1], -1)
+
+
+def _assembly_phase(blocks, n_valid, parsed, lit_sorted, lit_count, huf,
+                    seq, W: int, WQ: int):
+    """Compose one frame row per record (reference ``_encode_lane``,
+    vmapped by ``_assembly_phase``).  Returns (rows uint8 [B, N+16],
+    out_len int32 [B])."""
+    B, N = blocks.shape
+    dev = blocks.device
+    i64 = torch.int64
+    lut = _dev_consts(dev)
+    t = _tables()
+    ns = parsed["nseq"].to(i64)
+    nv = n_valid.to(i64)
+    h_codes, h_nbits, h_desc, h_dlen, h_ok = huf
+
+    real, ll, mlv, ofb = _seq_values(parsed["starts"], parsed["mls"],
+                                     parsed["offs"], parsed["nseq"])
+    ll_code, ml_code, of_code = _codes_from_values(ll, mlv, ofb, lut)
+
+    # FSE state chains (per-row fresh/RLE/predefined tables)
+    of_val, of_nb, of_fin = _fse_stream_states(of_code, ns, t["of"],
+                                               seq["of"][:3])
+    ml_val, ml_nb, ml_fin = _fse_stream_states(ml_code, ns, t["ml"],
+                                               seq["ml"][:3])
+    ll_val, ll_nb, ll_fin = _fse_stream_states(ll_code, ns, t["ll"],
+                                               seq["ll"][:3])
+
+    # extras (value masked by the packer to nbits)
+    ext_ll_nb = torch.where(real, lut["ll_bits"][ll_code.clamp(0, 35)], 0)
+    ext_ml_nb = torch.where(real, lut["ml_bits"][ml_code.clamp(0, 52)], 0)
+    ext_of_nb = torch.where(real, of_code, 0)
+
+    # field layout: per sequence i (emitted from i=S-1 down to 0):
+    #   [of_state, ml_state, ll_state, ll_extra, ml_extra, of_extra]
+    # then [ml_flush, of_flush, ll_flush].  Zero-width pads keep offsets
+    # exact (encode/block.py:encode_sequences_bitstream order).
+    vals6 = torch.stack([of_val, ml_val, ll_val, ll, mlv, ofb], 2
+                        ).flip(1).reshape(B, -1)
+    nbs6 = torch.stack([of_nb, ml_nb, ll_nb, ext_ll_nb, ext_ml_nb, ext_of_nb],
+                       2).flip(1).reshape(B, -1)
+    values = torch.cat([vals6, torch.stack([ml_fin, of_fin, ll_fin], 1)], 1)
+    tail_nbs = torch.stack([seq["ml"][3], seq["of"][3], seq["ll"][3]], 1)
+    nbits = torch.cat([nbs6, tail_nbs.to(i64)], 1) & U32
+    nbits = torch.where(ns[:, None] > 0, nbits, 0)
+    words, total_bits = pack_bits_device(values & U32, nbits, W)
+    bits_len = (total_bits + 7) >> 3
+    bits_bytes = _le_bytes(words, 4)                              # [B, 4W]
+
+    # ---- Huffman literal section (4-stream, device-packed) ----
+    L = lit_count.to(i64)
+    seg = ((L + 3) >> 2).clamp(min=1)[:, None, None]
+    SEGMAX = N // 4 + 1
+    tq = torch.arange(SEGMAX, device=dev)[None, None, :]
+    q = torch.arange(4, device=dev)[None, :, None]
+    seglen = torch.where(q < 3, seg, L[:, None, None] - 3 * seg)  # [B, 4, 1]
+    # symbols consumed back-to-front per quarter (encode_1x order)
+    srcpos = (q * seg + (seglen - 1 - tq)).clamp(0, N - 1)        # [B, 4, SEGMAX]
+    sym = torch.gather(lit_sorted.to(i64), 1, srcpos.reshape(B, -1))
+    hv = torch.gather(h_codes, 1, sym).reshape(B, 4, SEGMAX)
+    hb = torch.where(tq < seglen,
+                     torch.gather(h_nbits, 1, sym).reshape(B, 4, SEGMAX), 0)
+    hwords, htotal = pack_bits_device(hv, hb, WQ)                 # [B, 4, WQ]
+    sl = (htotal + 7) >> 3                                        # [B, 4]
+    hbytes = _le_bytes(hwords, 4)                                 # [B, 4, 4WQ]
+    comp_lit = h_dlen.to(i64) + 6 + sl.sum(1)
+    use_huf = h_ok & (5 + comp_lit < 3 + L) & (ns > 0)
+    lit_sec = torch.where(use_huf, 5 + comp_lit, 3 + L)
+
+    # section sizes
+    tbl_len = seq["tbl_len"].to(i64)
+    body = lit_sec + 2 + 1 + tbl_len + bits_len  # lits+nbseq+modes+tbls+fse
+    comp_total = 12 + body                       # frame hdr 9 + block hdr 3
+    raw_total = 12 + nv
+    use_raw = (ns == 0) | (comp_total >= raw_total)
+    out_len = torch.where(use_raw, raw_total, comp_total)
+
+    # frame header: magic | FHD 0xA0 (single-segment, 4-byte FCS) | FCS32
+    hdr9 = torch.cat([lut["magic"].expand(B, 5), _le_bytes((nv & U32)[:, None], 4)],
+                     1)
+    bsize = torch.where(use_raw, nv, body)
+    btype = torch.where(use_raw, 0, 2)
+    bh3 = _le_bytes((1 | (btype << 1) | (bsize << 3))[:, None], 3)
+    # raw-literal header (type 0, size_format 3)
+    lh3 = _le_bytes(((3 << 2) | (L << 4))[:, None], 3)
+    # compressed-literal header (type 2, size_format 3: 18+18-bit sizes);
+    # the 40-bit field  2 | 3<<2 | L<<4 | comp_lit<<22  emitted bytewise
+    Lu, cu = L & U32, comp_lit & U32
+    hh5 = torch.stack([
+        (2 | (3 << 2)) | ((Lu & 0xF) << 4),
+        (Lu >> 4) & 0xFF,
+        ((Lu >> 12) & 0x3F) | ((cu & 0x3) << 6),
+        (cu >> 2) & 0xFF,
+        (cu >> 10) & 0xFF,
+    ], 1)
+
+    # byte-position classifier: position j of the row reads every section
+    # at its clamped offset, then selects
+    OUT = N + 16
+    j = torch.arange(OUT, device=dev)[None, :]
+    jb = j - 12
+
+    def take(tbl, pos):
+        pos = pos.clamp(0, tbl.shape[-1] - 1).expand(B, OUT)
+        return torch.gather(tbl.to(i64), 1, pos)
+
+    col = lambda v: v[:, None]  # noqa: E731  ([B] -> [B, 1])
+    head = torch.where(j < 9, take(hdr9, j), take(bh3, j - 9))
+    raw_byte = take(blocks, jb)
+    lit_byte = take(lit_sorted, jb - 3)
+    raw_sec = torch.where(jb < 3, take(lh3, jb), lit_byte)
+    # huffman section byte: hdr5 | desc | jump | 4 streams
+    c_desc = 5
+    c_jump = c_desc + col(h_dlen.to(i64))
+    c_s0 = c_jump + 6
+    c_s1 = c_s0 + sl[:, 0:1]
+    c_s2 = c_s1 + sl[:, 1:2]
+    c_s3 = c_s2 + sl[:, 2:3]
+    jump6 = torch.stack([sl[:, 0] & 0xFF, sl[:, 0] >> 8, sl[:, 1] & 0xFF,
+                         sl[:, 1] >> 8, sl[:, 2] & 0xFF, sl[:, 2] >> 8], 1)
+    huf_sec = torch.where(
+        jb < c_desc, take(hh5, jb),
+        torch.where(jb < c_jump, take(h_desc, jb - c_desc),
+        torch.where(jb < c_s0, take(jump6, jb - c_jump),
+        torch.where(jb < c_s1, take(hbytes[:, 0], jb - c_s0),
+        torch.where(jb < c_s2, take(hbytes[:, 1], jb - c_s1),
+        torch.where(jb < c_s3, take(hbytes[:, 2], jb - c_s2),
+                    take(hbytes[:, 3], jb - c_s3)))))))
+    lit_sec_byte = torch.where(col(use_huf), huf_sec, raw_sec)
+
+    ls = col(lit_sec)
+    tl = col(tbl_len)
+    bits_byte = take(bits_bytes, jb - 3 - tl - ls)
+    tbl_byte = take(seq["tbl"], jb - 3 - ls)
+    nbseq_b = torch.where(jb == ls, 128 + col(ns >> 8), col(ns & 0xFF))
+    compressed = torch.where(
+        jb < ls, lit_sec_byte,
+        torch.where(jb < ls + 2, nbseq_b,
+            torch.where(jb == ls + 2, col(seq["mode"].to(i64)),
+                torch.where(jb < ls + 3 + tl, tbl_byte, bits_byte))))
+    tail = torch.where(col(use_raw), raw_byte, compressed)
+    row = torch.where(j < 12, head, tail) & 0xFF
+    row = torch.where(j < col(out_len), row, 0).to(torch.uint8)
+    return row, out_len.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Entry
+# ---------------------------------------------------------------------------
+
+def encode_frames_device(blocks: torch.Tensor, n_valid: torch.Tensor,
+                         S: int, W: int, hash_log: int = 15,
+                         huf_literals: bool = True,
+                         timings: dict | None = None):
+    """Batched device encode: uint8 [B, N] padded records (and their int
+    lengths [B]) on one device -> zstd frame rows uint8 [B, N+16] + lengths
+    int32 [B] on that device.
+
+    timings: when a dict is given, the device is synchronised after each
+    phase and the phase's wall seconds are added under "parse", "tables"
+    and "assembly"."""
+    t = _tables()
+    dev = blocks.device
+    clock = [time.perf_counter()]
+
+    def tick(stage):
+        if timings is None:
+            return
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        timings[stage] = timings.get(stage, 0.0) + now - clock[0]
+        clock[0] = now
+
+    B, N = blocks.shape
+    parsed, lit_sorted, lit_count, lit_hist, code_hists = _parse_phase(
+        blocks, n_valid, S, hash_log)
+    # the batch's one host synchronisation: every count, in one copy
+    counts = torch.cat([lit_hist, lit_count[:, None],
+                        parsed["nseq"][:, None], *code_hists], 1).cpu().numpy()
+    tick("parse")
+
+    if huf_literals:
+        ch, nh, dh_, dl, ok = _build_lit_tables(
+            np.ascontiguousarray(counts[:, :256]), counts[:, 256].copy())
+    else:
+        ch = np.zeros((B, 256), np.uint32)
+        nh = np.zeros((B, 256), np.uint32)
+        dh_ = np.zeros((B, DESC_MAX), np.uint8)
+        dl = np.zeros(B, np.int32)
+        ok = np.zeros(B, bool)
+    hists_np = (np.ascontiguousarray(counts[:, 258:294]),
+                np.ascontiguousarray(counts[:, 294:326]),
+                np.ascontiguousarray(counts[:, 326:379]))
+    seq_t, mode_byte, tbl, tbl_len = _build_seq_tables(
+        hists_np, counts[:, 257].copy(), t)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    huf = (up(ch.astype(np.int64)), up(nh.astype(np.int64)), up(dh_),
+           up(dl), up(ok))
+    seq = {name: tuple(up(a) for a in seq_t[name]) for name in ("ll", "of",
+                                                                 "ml")}
+    seq.update(mode=up(mode_byte), tbl=up(tbl), tbl_len=up(tbl_len))
+    tick("tables")
+
+    SEGMAX = N // 4 + 1
+    WQ = (SEGMAX * 11 + 24) // 32 + 2
+    out = _assembly_phase(blocks, n_valid, parsed, lit_sorted, lit_count,
+                          huf, seq, W, WQ)
+    tick("assembly")
+    return out
