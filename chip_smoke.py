@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two record-batch paths once each through their user
-entry points:
+Drives the port's two record-batch paths, its data-parallel stream codec
+and the entry points of graft_entry.py once each through their user entry
+points:
 
 * decode: ``zstdsharp_tpu_torch.decode.frame.Decompressor().unwrap_many_device``
   on the bench's decode workload (bench.py: the first 6 MB of
@@ -35,10 +36,35 @@ Phases, each printed on its own line:
      launched;
   8. encode timings (printed, not asserted): marginal GB/s, stage times,
      compressed bytes, and the host tier's level-1 compress on the same
-     records.
+     records;
+  9. stream compress at level 1 through
+     ``zstdsharp_tpu_torch.parallel.pipeline.compress_data_parallel`` on a
+     one-card mesh, over ``make_corpus(211_938_580)`` (Silesia's byte
+     count; the 8 MB the phases above use is its prefix): the frame
+     decodes byte-exact with the host tier, the native body ran, the
+     candidates lived on the card, and the frame of the first 8 MB equals
+     the port's CPU-mesh run; prints GB/s, parse_ms / body_ms, compressed
+     bytes, peak device memory, the host tier's level-1 compress, and the
+     stage times of the same steps called in turn with the card
+     synchronised after each (their frame body equals the pipeline's);
+ 10. stream decode through ``decompress_data_parallel`` of the 256 decode
+     frames concatenated: bytes equal the records, all 256 frames decoded
+     on the card, both decode kernels launched; prints GB/s and telemetry;
+ 11. records encode through ``compress_records_device`` on the 256 x 16 KB
+     encode records: every frame decodes byte-exact with the host tier,
+     the frames equal ``compress_batch_device``'s, the histogram kernel
+     launched;
+ 12. ``zstdsharp_tpu_torch.graft_entry``: ``entry("cuda")`` equals
+     ``entry("cpu")`` and launched the histogram kernel, and
+     ``dryrun_multichip(1)`` completes on the card (its lines printed);
+ 13. one more level-1 stream compress of phase 9's input under
+     torch.profiler: device events, the device's busy share (the union of
+     their intervals over the call's wall time) and the time of the
+     copies and sorts.  It runs last so that no timed phase follows a
+     profiler session.
 
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.
+and read just after; a kernel's "launches" in the JSON line sums them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one CUDA device and exits non-zero, printing no result, when there
@@ -55,6 +81,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+SILESIA_BYTES = 211_938_580
 REC_SIZE = 24 << 10
 N_RECORDS = 256
 ENC_REC_SIZE = 16 << 10
@@ -323,6 +350,220 @@ def _encode_phases(data, dev, card):
     return hist, launches
 
 
+def _compress_phase(big, data, mesh, dev, card):
+    """Phase 9: level-1 stream compress at Silesia's size on the card."""
+    import torch
+
+    from zstdsharp_tpu import native
+    from zstdsharp_tpu.decode.frame import decompress
+    from zstdsharp_tpu.encode.frame import compress
+    from zstdsharp_tpu_torch.parallel import pipeline as pp
+
+    _check(native.get_lib() is not None, "the native engine loads, so "
+           "compress_data_parallel runs the native dp_frame_body")
+    seen = []
+    step = pp._device_step
+
+    def spy(blocks, hash_log):
+        out = step(blocks, hash_log)
+        seen.append(out[1].device)
+        return out
+
+    pp._device_step = spy
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        tels, secs = [{}, {}], []
+        for tel in tels:
+            t = time.perf_counter()
+            frame = pp.compress_data_parallel(big, mesh, level=1,
+                                              telemetry=tel)
+            secs.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        pp._device_step = step
+    _check(decompress(frame) == big, "the level-1 stream frame decodes "
+           "byte-exact with the host tier")
+    _check(all("body_ms" in t and t["blocks"] == -(-len(big) // pp.BLOCK)
+               for t in tels), f"telemetry {tels}")
+    _check(seen and all(d == dev for d in seen),
+           f"the candidate tensors lived on {dev} ({set(map(str, seen))})")
+    head = pp.compress_data_parallel(data, mesh, level=1)
+    _check(head == pp.compress_data_parallel(data, ["cpu"], level=1),
+           "the first 8 MB's frame equals the port's CPU-mesh run")
+    host = []
+    host_s = _timed(lambda: host.append(compress(big, 1)))
+    host_size = len(host[0])
+    stages = _stream_breakdown(big, frame, dev)
+    gbs = [len(big) / s / 1e9 for s in secs]
+    print(f"phase stream compress: L1 {len(big)} B over {len(mesh)} card(s) "
+          f"({tels[1]['blocks']} blocks of {pp.BLOCK} B) -> {len(frame)} B, "
+          f"byte-exact via the host decoder, first 8 MB == CPU mesh; "
+          f"end-to-end {gbs[0]:.4f} GB/s (first call, {secs[0] * 1e3:.1f} "
+          f"ms), {gbs[1]:.4f} GB/s (second, {secs[1] * 1e3:.1f} ms); "
+          f"parse_ms {[t['parse_ms'] for t in tels]}, body_ms "
+          f"{[t['body_ms'] for t in tels]}; peak device memory "
+          f"{peak} B; host compress L1 {len(big) / host_s / 1e9:.4f} GB/s "
+          f"({host_s * 1e3:.1f} ms) -> {host_size} B; stages in turn, ms "
+          f"{stages} on {card}")
+
+
+def _stream_breakdown(big, frame, dev):
+    """Phase 9's stage times (ms): the steps of compress_data_parallel at
+    level 1 on a one-card mesh, called in turn with the card synchronised
+    after each.  Checks that they make the pipeline's frame body."""
+    import numpy as np
+    import torch
+
+    from zstdsharp_tpu import native
+    from zstdsharp_tpu_torch.parallel import pipeline as pp
+
+    ms = {}
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        ms[name] = round((time.perf_counter() - t) * 1e3, 2)
+        return out
+
+    blocks, _, n_blocks = stage("shard_blocks",
+                                lambda: pp.shard_blocks(big, 1))
+    rows = stage("h2d", lambda: torch.from_numpy(blocks).to(dev))
+    ps, cand, _ = stage("candidate_stage", lambda: pp._device_step(rows, 16))
+    by_pos = stage("unsort", lambda: torch.empty_like(cand).scatter_(
+        1, ps.to(torch.int64), cand))
+    host = stage("d2h", lambda: by_pos.cpu().numpy())
+    body = stage("native_body", lambda: native.dp_frame_body(
+        np.frombuffer(big, np.uint8), host[:n_blocks].reshape(-1), pp.BLOCK))
+    _check(body is not None and frame.endswith(body),
+           "the staged steps make the pipeline's frame body")
+    ms["sum"] = round(sum(ms.values()), 2)
+    return ms
+
+
+def _stream_profile(big, dev, card):
+    """Phase 13: one level-1 stream compress under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zstdsharp_tpu_torch.parallel import pipeline as pp
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        pp.compress_data_parallel(big, [dev], level=1)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _check(events, "the profiler recorded device events")
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy += max(hi - lo, 0.0)
+        end = max(end, hi)
+
+    def total(*keys):
+        return sum(e.time_range.elapsed_us() for e in events
+                   if any(k in e.name for k in keys)) / 1e3
+
+    print(f"phase stream compress profile: L1 {len(big)} B, wall "
+          f"{wall:.1f} ms (profiled), {len(events)} device events, device "
+          f"busy {busy / 1e3:.2f} ms (share {busy / 1e3 / wall:.4f}); "
+          f"Memcpy DtoH {total('Memcpy DtoH'):.2f} ms, Memcpy HtoD "
+          f"{total('Memcpy HtoD'):.2f} ms, sort kernels "
+          f"{total('Sort', 'sort'):.2f} ms on {card}")
+
+
+def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
+    """Phases 9-12.  Returns each kernel's launches in their paths."""
+    import torch
+
+    from zstdsharp_tpu.decode.frame import decompress
+    from zstdsharp_tpu_torch import graft_entry
+    from zstdsharp_tpu_torch.encode.device_pipeline import (
+        compress_batch_device)
+    from zstdsharp_tpu_torch.parallel import pipeline as pp
+
+    mesh = pp.make_mesh()
+    _check(mesh[0] == dev, f"the mesh starts at {dev}: {mesh}")
+    _compress_phase(big, data, mesh, dev, card)
+    launches = dict.fromkeys(_counts(), 0)
+
+    # ---- 10: stream decode of the record log ----
+    stream = b"".join(frames)
+    payload = b"".join(recs)
+    tel = {}
+    _reset_counts()
+    out = pp.decompress_data_parallel(stream, mesh, telemetry=tel)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check(out == payload, "the stream decodes to the records")
+    _check(tel["device_frames"] == N_RECORDS,
+           f"device_frames {tel['device_frames']}")
+    _check(counts["huf_decode"] > 0 and counts["fse_decode"] > 0,
+           f"decode kernels launched {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    tel2 = {}
+    secs = _timed(lambda: pp.decompress_data_parallel(stream, mesh,
+                                                      telemetry=tel2))
+    print(f"phase stream decode: {len(frames)} frames, {len(stream)} B -> "
+          f"{len(payload)} B byte-exact via decompress_data_parallel; "
+          f"launches {counts}; {len(payload) / secs / 1e9:.4f} GB/s "
+          f"({secs * 1e3:.1f} ms, second call); telemetry first {tel}, "
+          f"second {tel2} on {card}")
+
+    # ---- 11: records encode ----
+    tel = {}
+    _reset_counts()
+    eframes = pp.compress_records_device(enc_recs, mesh, telemetry=tel)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check(counts["histogram"] > 0, f"histogram launched {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    _check([decompress(f) for f in eframes] == enc_recs,
+           "every record frame decodes byte-exact with the host tier")
+    _check(eframes == compress_batch_device(enc_recs, dev,
+                                            materialize=True)[0],
+           "the frames equal compress_batch_device's")
+    _check(tel["device_frames"] == len(enc_recs), f"telemetry {tel}")
+    print(f"phase records encode: {len(enc_recs)} records, "
+          f"{sum(map(len, enc_recs))} B -> {sum(map(len, eframes))} B via "
+          f"compress_records_device, byte-exact via the host decoder, == "
+          f"compress_batch_device; launches {counts}; telemetry {tel} "
+          f"on {card}")
+
+    # ---- 12: the entry points of graft_entry.py ----
+    _reset_counts()
+    fn, args = graft_entry.entry("cuda")
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check(all(a.device == dev for a in args), "entry() arguments on card")
+    _check(counts["histogram"] > 0, f"entry() launched histogram {counts}")
+    c_fn, c_args = graft_entry.entry("cpu")
+    want = c_fn(*c_args)
+    _check(set(got) == set(want) and all(
+        torch.equal(got[k].cpu(), want[k]) for k in want),
+        "entry('cuda') equals entry('cpu')")
+    _reset_counts()
+    t = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    torch.cuda.synchronize()
+    dry = _counts()
+    _check(all(v > 0 for v in dry.values()),
+           f"dryrun_multichip(1) launched every kernel {dry}")
+    for k in launches:
+        launches[k] += counts[k] + dry[k]
+    print(f"phase entry points: entry('cuda') == entry('cpu') "
+          f"(nseq {got['nseq'].tolist()}, launches {counts}); "
+          f"dryrun_multichip(1) completed in {time.perf_counter() - t:.2f} s "
+          f"(launches {dry}) on {card}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "zstdsharp_tpu_torch").is_dir():
         print("chip_smoke.py: zstdsharp_tpu_torch/ not found beside this "
@@ -362,7 +603,8 @@ def main() -> int:
 
     from bench import make_corpus
 
-    data = make_corpus(8 << 20)
+    big = make_corpus(SILESIA_BYTES)
+    data = big[:8 << 20]
     recs, frames, extras, extra_frames = _workload(data)
     print(f"workload: {len(frames)} records x {REC_SIZE} B at level 9 -> "
           f"{sum(map(len, frames))} B, plus {len(extra_frames)} frames "
@@ -422,6 +664,10 @@ def main() -> int:
 
     hist, hist_launches = _encode_phases(data, dev, card)
     launches["histogram"] = hist_launches
+    dp_launches = _stream_phases(big, data, recs, frames,
+                                 _encode_workload(data)[0], dev, card)
+    launches = {k: launches[k] + dp_launches[k] for k in launches}
+    _stream_profile(big, dev, card)
 
     kernels = []
     for name, (err, ms, plain_ms), src, rep in (

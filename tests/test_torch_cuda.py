@@ -1,12 +1,16 @@
 """The port's CUDA kernels on the card: each kernel against its plain torch
-version, and the decode and encode planes on the card against their CPU
-runs.
+version, and the decode and encode planes, the candidate stage and the
+data-parallel compressor on the card against their CPU runs.  With two
+cards or more, the kernels launched from a worker thread on the second
+card and the stream codec over a mesh of cards.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import neither JAX
 nor zstandard, so they also run on a machine that has neither:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -20,6 +24,11 @@ from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
 from zstdsharp_tpu_torch.ops import histogram as hg
+from zstdsharp_tpu_torch.ops.matcher import candidate_stage
+from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
+                                                   compress_records_device,
+                                                   decompress_data_parallel,
+                                                   make_mesh)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +188,86 @@ def test_encode_on_card_equals_cpu(cuda):
     assert [decompress(f) for f in frames] == recs
     results, _ = dp.decode_batch_device(frames[:43], cuda, materialize=True)
     assert results == recs[:43]
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1 << 17])
+def test_candidate_stage_on_card_equals_cpu(cuda, n):
+    rows = np.stack([np.frombuffer(b"".join(_records(1, n, n + k))[:n],
+                                   np.uint8) for k in range(3)])
+    rows[1, n // 2:] = np.random.default_rng(n).integers(0, 256, n - n // 2)
+    ps, cand = candidate_stage(torch.from_numpy(rows).to(cuda), 16)
+    c_ps, c_cand = candidate_stage(torch.from_numpy(rows), 16)
+    assert ps.device.type == "cuda"
+    assert torch.equal(ps.cpu(), c_ps) and torch.equal(cand.cpu(), c_cand)
+
+
+def test_compress_data_parallel_on_card_equals_cpu_mesh(cuda):
+    data = b"".join(_records(3, 400_000, 71))
+    mesh = make_mesh()
+    assert mesh[0].type == "cuda"
+    tel = {}
+    frame = compress_data_parallel(data, mesh[:1], level=1, telemetry=tel)
+    assert frame == compress_data_parallel(data, ["cpu"], level=1)
+    assert decompress(frame) == data
+    assert tel["blocks"] == -(-len(data) // (1 << 17))
+
+
+@pytest.fixture(scope="module")
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: the mesh spans cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_kernels_from_a_worker_thread_on_the_second_card(planned, two_cards):
+    """A worker thread whose current device is cuda:0 launches each kernel
+    on the card its operands are on."""
+    dev = two_cards[1]
+    huf, fse = ({k: (v if k == "t_max" else v.to(dev)) for k, v in o.items()}
+                for o in planned)
+    data = torch.from_numpy(np.frombuffer(b"etaoin shrdlu" * 999, np.uint8)
+                            .copy()).to(dev)
+
+    def run():
+        torch.cuda.set_device(0)
+        return (dh.decode_lanemajor(huf), df.decode_lanemajor(fse),
+                hg.histogram_u8(data))
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        h, f, g = pool.submit(run).result()
+    torch.cuda.synchronize(dev)
+    assert h.device == f[0].device == g.device == dev
+    assert torch.equal(h, dh.decode_plain(*(huf[k] for k in dh._OPERANDS),
+                                          h.shape[1]))
+    for a, b in zip(f, df.decode_plain(*(fse[k] for k in df._OPERANDS),
+                                       f[0].shape[1])):
+        assert torch.equal(a, b)
+    assert torch.equal(g, hg.histogram_plain(data))
+
+
+def test_stream_codec_on_two_cards(two_cards):
+    recs = _records(12, 20_000, 81)
+    frames = [compress(r, 9) for r in recs]
+    tel = {}
+    out = decompress_data_parallel(b"".join(frames), two_cards, telemetry=tel)
+    assert out == b"".join(recs)
+    assert tel["device_frames"] == len(recs)
+    assert [s["device"] for s in tel["device_shards"]] == ["cuda:0", "cuda:1"]
+    before = hg.histogram_u8.launches
+    got = compress_records_device(recs, two_cards)
+    assert hg.histogram_u8.launches > before
+    assert got == compress_records_device(recs, ["cpu"] * 2)
+    data = b"".join(_records(3, 400_000, 82))
+    assert compress_data_parallel(data, two_cards, level=1) \
+        == compress_data_parallel(data, ["cpu"] * 2, level=1)
+
+
+def test_dryrun_multichip_on_every_card(two_cards, capsys):
+    from zstdsharp_tpu_torch.graft_entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    dryrun_multichip(n)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 6
+    assert f"decode 16 frames over {n} shards" in lines[3]
+    assert f"encode 16 frames over {n} shards" in lines[4]

@@ -31,6 +31,8 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "from zstdsharp_tpu_torch.ops import device_fse, device_huf, execseq\n"
         "from zstdsharp_tpu_torch.ops import common, device_encode, histogram\n"
         "from zstdsharp_tpu_torch.ops import matcher\n"
+        "from zstdsharp_tpu_torch.parallel import pipeline\n"
+        "from zstdsharp_tpu_torch import graft_entry\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised'\n"
         "assert _build._lib is None, 'kernels loaded at import'\n"
@@ -45,7 +47,7 @@ def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     files = sorted((ROOT / "zstdsharp_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 14
+    assert len(files) >= 17
     for f in files:
         assert not pat.search(f.read_text()), f
 

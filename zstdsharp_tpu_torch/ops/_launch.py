@@ -33,3 +33,16 @@ def stream_handle(device: torch.device) -> int:
 def check_rc(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed (cudaError_t {rc})")
+
+
+def launch(kernel: str, device: torch.device, fn, *args) -> None:
+    """Call the C launcher `fn(*args, stream)` into PyTorch's current
+    stream on `device`, with `device` the calling thread's current CUDA
+    device, and raise on a nonzero cudaError_t.  A launcher acts on the
+    current device (``cudaFuncSetAttribute``, the launch itself), and a
+    thread starts on cuda:0, so without the guard a worker thread's launch
+    into another card's stream fails."""
+    stream = stream_handle(device)
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    check_rc(kernel, rc)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ._launch import check_operand, check_rc, stream_handle
+from ._launch import check_operand, launch, stream_handle
 
 # Copied from zstdsharp_tpu/ops/device_fse.py (importing it would import
 # JAX through zstdsharp_tpu/ops/__init__.py).
@@ -171,14 +171,12 @@ def decode_lanemajor(ops: dict):
     args = [ops[k] for k in _OPERANDS]
     if dev.type == "cpu":
         return decode_plain(*args, t_len)
-    stream = stream_handle(dev)
+    stream_handle(dev)  # raises off CUDA
     outs = [torch.empty((nl, t_len), dtype=torch.int32, device=dev)
             for _ in range(3)]
-    lib = _build.load()
     a = [x.data_ptr() for x in args]
-    rc = lib.zt_fse_decode(a[0], wb, *a[1:], *(o.data_ptr() for o in outs),
-                           nl, t_len, stream)
-    check_rc("fse_decode", rc)
+    launch("fse_decode", dev, _build.load().zt_fse_decode, a[0], wb, *a[1:],
+           *(o.data_ptr() for o in outs), nl, t_len)
     decode_lanemajor.launches += 1
     return tuple(outs)
 

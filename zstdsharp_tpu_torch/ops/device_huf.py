@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ._launch import check_operand, check_rc, stream_handle
+from ._launch import check_operand, launch, stream_handle
 
 # Copied from zstdsharp_tpu/ops/device_huf.py (importing it would import
 # JAX through zstdsharp_tpu/ops/__init__.py).
@@ -133,13 +133,11 @@ def decode_lanemajor(ops: dict) -> torch.Tensor:
     args = [ops[k] for k in _OPERANDS]
     if dev.type == "cpu":
         return decode_plain(*args, t_len)
-    stream = stream_handle(dev)
+    stream_handle(dev)  # raises off CUDA
     out = torch.empty((nl, t_len), dtype=torch.int32, device=dev)
-    lib = _build.load()
     a = [x.data_ptr() for x in args]
-    rc = lib.zt_huf_decode(a[0], wb, *a[1:], out.data_ptr(), nl, t_len,
-                           stream)
-    check_rc("huf_decode", rc)
+    launch("huf_decode", dev, _build.load().zt_huf_decode, a[0], wb, *a[1:],
+           out.data_ptr(), nl, t_len)
     decode_lanemajor.launches += 1
     return out
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._launch import check_operand, check_rc, stream_handle
+from ._launch import check_operand, launch, stream_handle
 
 
 def histogram_plain(data: torch.Tensor,
@@ -48,16 +48,14 @@ def histogram_u8(data: torch.Tensor,
         check_operand("mask", mask, shape, dev, torch.bool)
     if dev.type == "cpu":
         return histogram_plain(data, mask)
-    stream = stream_handle(dev)
+    stream_handle(dev)  # raises off CUDA
     b, n = (1, shape[0]) if data.dim() == 1 else shape
     out = torch.zeros(b, 256, dtype=torch.int32, device=dev)
     if data.numel() == 0:
         return out.reshape(*shape[:-1], 256)
-    lib = _build.load()
-    rc = lib.zt_histogram(data.data_ptr(),
-                          mask.data_ptr() if mask is not None else None,
-                          b, n, out.data_ptr(), stream)
-    check_rc("histogram", rc)
+    launch("histogram", dev, _build.load().zt_histogram, data.data_ptr(),
+           mask.data_ptr() if mask is not None else None, b, n,
+           out.data_ptr())
     histogram_u8.launches += 1
     return out.reshape(*shape[:-1], 256)
 
