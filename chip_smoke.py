@@ -18,8 +18,11 @@ points:
 Phases, each printed on its own line:
   1. the card (nvidia-smi) and the build of the CUDA kernels from csrc/;
   2. the Huffman kernel against its plain torch version on the card, on
-     the operands the native planner packs for the decode workload;
-  3. the same for the FSE kernel;
+     the operands the native planner packs for the decode workload, with
+     its bound (``kernel_bench.huf_work``: bytes each input read once and
+     each output written once over 3.35 TB/s, or operations over the
+     core rate, whichever is larger);
+  3. the same for the FSE kernel (``kernel_bench.fse_work``);
   4. decode end to end: decoded bytes equal the inputs, none of the 256
      records is routed to the host, both decode kernels were launched;
   5. decode timings (printed, not asserted): each kernel and its plain
@@ -27,7 +30,9 @@ Phases, each printed on its own line:
      times, and the host decoder on the same frames;
   6. the histogram kernel against its plain torch version on the encode
      workload's literal rows (the first chunk's [32, 16384] with their
-     prefix masks) and on an unmasked 1-D vector of odd length;
+     prefix masks) and on an unmasked 1-D vector of odd length, timed
+     beside ``torch.bincount`` on the same inputs (the mask as weights;
+     a yardstick the port never calls), with its bound;
   7. encode end to end: every frame decodes byte-exact with the host tier,
      the 256 records' frames decode byte-exact through the port's decode
      plane with none routed to the host, none of the 256 records is
@@ -65,6 +70,8 @@ Phases, each printed on its own line:
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel's "launches" in the JSON line sums them.
+The script imports the port and ``bench.make_corpus`` (a data generator)
+only: nothing of JAX or of the JAX package.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one CUDA device and exits non-zero, printing no result, when there
@@ -117,7 +124,7 @@ def _first_block(frame: bytes):
     """(last-block flag, block type) of a frame's first block."""
     import numpy as np
 
-    from zstdsharp_tpu.decode.frame import parse_frame_header
+    from zstdsharp_tpu_torch.decode.frame import parse_frame_header
 
     p = parse_frame_header(np.frombuffer(frame, np.uint8)).header_size
     bh = int.from_bytes(frame[p:p + 3], "little")
@@ -128,7 +135,7 @@ def _workload(data):
     """(records, their frames, extra inputs, their frames)."""
     import numpy as np
 
-    from zstdsharp_tpu.encode.frame import compress
+    from zstdsharp_tpu_torch.encode.frame import compress
 
     recs = [data[i:i + REC_SIZE] for i in range(0, 6 << 20, REC_SIZE)]
     _check(len(recs) == N_RECORDS, "256 records of 24 KB")
@@ -162,9 +169,13 @@ def _frame_bytes(n, outs, lens, host):
     return got
 
 
-def _kernel_phase(name, mod, ops, outputs_of, mask_key, card):
-    """Kernel vs plain version on the card at the workload's shapes."""
+def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
+    """Kernel vs plain version on the card at the workload's shapes.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms);
+    `work` gives the call's (bytes, operations) from its operands."""
     import torch
+
+    from zstdsharp_tpu_torch.kernel_bench import bound
 
     args = [ops[k] for k in mod._OPERANDS]
     got = outputs_of(mod.decode_lanemajor(ops))
@@ -181,10 +192,13 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, card):
            f"{name} kernel zero-fills past each lane's count")
     ms = _gpu_ms(lambda: mod.decode_lanemajor(ops), 20)
     plain_ms = _gpu_ms(lambda: mod.decode_plain(*args, t_len), 1)
+    bound_ms, bound_by = bound(*work(ops, t_len))
     print(f"phase {name}: kernel == plain over {int(live.sum())} entries of "
           f"{len(got)} x {tuple(got[0].shape)} (max_abs_err {err}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms on {card}")
-    return err, ms, plain_ms
+          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes "
+          f"it, on {card}")
+    return err, ms, plain_ms, bound_ms, bound_by, None
 
 
 def _kernel_wrappers():
@@ -221,9 +235,13 @@ def _encode_workload(data):
 
 def _hist_phase(lit_sorted, mask, odd, card):
     """Histogram kernel vs plain version on the card: the literal rows with
-    their prefix masks, and an unmasked odd-length vector."""
+    their prefix masks, and an unmasked odd-length vector.  The yardstick
+    is ``torch.bincount`` on the same rows with the mask as weights (the
+    port never calls it).  Returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms) at the literal rows."""
     import torch
 
+    from zstdsharp_tpu_torch.kernel_bench import bound, hist_work
     from zstdsharp_tpu_torch.ops import histogram as hg
 
     err = 0.0
@@ -242,12 +260,24 @@ def _hist_phase(lit_sorted, mask, odd, card):
     plain_ms = _gpu_ms(lambda: hg.histogram_plain(lit_sorted, mask), 20)
     odd_ms = _gpu_ms(lambda: hg.histogram_u8(odd), 20)
     odd_plain = _gpu_ms(lambda: hg.histogram_plain(odd), 20)
+    flat, weights = lit_sorted.reshape(-1), mask.reshape(-1).float()
+    _check(torch.equal(torch.bincount(flat, weights=weights, minlength=256)
+                       .long(), hg.histogram_plain(lit_sorted, mask).sum(0)
+                       .long()),
+           "torch.bincount agrees with the histogram")
+    lib_ms = _gpu_ms(lambda: torch.bincount(flat, weights=weights,
+                                            minlength=256), 20)
+    odd_lib = _gpu_ms(lambda: torch.bincount(odd, minlength=256), 20)
+    bound_ms, bound_by = bound(*hist_work(lit_sorted, mask))
     print(f"phase histogram: kernel == plain on lit_sorted "
           f"{tuple(lit_sorted.shape)} masked ({int(mask.sum())} literals) and "
           f"on {odd.shape[0]} unmasked bytes (max_abs_err {err}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; odd vector kernel "
-          f"{odd_ms:.4f} ms, plain {odd_plain:.4f} ms on {card}")
-    return err, ms, plain_ms
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); odd "
+          f"vector kernel {odd_ms:.4f} ms, plain {odd_plain:.4f} ms, "
+          f"torch.bincount {odd_lib:.4f} ms (CUDA events, wrapper host work "
+          f"included) on {card}")
+    return err, ms, plain_ms, bound_ms, bound_by, lib_ms
 
 
 def _encode_phases(data, dev, card):
@@ -256,8 +286,8 @@ def _encode_phases(data, dev, card):
     import numpy as np
     import torch
 
-    from zstdsharp_tpu.decode.frame import decompress
-    from zstdsharp_tpu.encode.frame import compress
+    from zstdsharp_tpu_torch.decode.frame import decompress
+    from zstdsharp_tpu_torch.encode.frame import compress
     from zstdsharp_tpu_torch.decode.frame import Decompressor
     from zstdsharp_tpu_torch.encode.device_pipeline import (
         LANES, compress_batch_device)
@@ -354,9 +384,9 @@ def _compress_phase(big, data, mesh, dev, card):
     """Phase 9: level-1 stream compress at Silesia's size on the card."""
     import torch
 
-    from zstdsharp_tpu import native
-    from zstdsharp_tpu.decode.frame import decompress
-    from zstdsharp_tpu.encode.frame import compress
+    from zstdsharp_tpu_torch import native
+    from zstdsharp_tpu_torch.decode.frame import decompress
+    from zstdsharp_tpu_torch.encode.frame import compress
     from zstdsharp_tpu_torch.parallel import pipeline as pp
 
     _check(native.get_lib() is not None, "the native engine loads, so "
@@ -414,7 +444,7 @@ def _stream_breakdown(big, frame, dev):
     import numpy as np
     import torch
 
-    from zstdsharp_tpu import native
+    from zstdsharp_tpu_torch import native
     from zstdsharp_tpu_torch.parallel import pipeline as pp
 
     ms = {}
@@ -479,7 +509,7 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
     """Phases 9-12.  Returns each kernel's launches in their paths."""
     import torch
 
-    from zstdsharp_tpu.decode.frame import decompress
+    from zstdsharp_tpu_torch.decode.frame import decompress
     from zstdsharp_tpu_torch import graft_entry
     from zstdsharp_tpu_torch.encode.device_pipeline import (
         compress_batch_device)
@@ -585,10 +615,11 @@ def main() -> int:
     card = smi.stdout.strip()
     print(card)
 
-    from zstdsharp_tpu.decode.frame import decompress
+    from zstdsharp_tpu_torch.decode.frame import decompress
     from zstdsharp_tpu_torch import _build
     from zstdsharp_tpu_torch.decode import device_pipeline as dp
     from zstdsharp_tpu_torch.decode.frame import Decompressor
+    from zstdsharp_tpu_torch.kernel_bench import fse_work, huf_work
     from zstdsharp_tpu_torch.ops import device_fse as df
     from zstdsharp_tpu_torch.ops import device_huf as dh
 
@@ -615,8 +646,10 @@ def main() -> int:
     hops = dp.ops_to_device(plan.nb.huf_ops(0), dev)
     fops = dp.ops_to_device(plan.nb.fse_ops(0), dev)
     dp._release_ops(plan.nb, None)
-    huf = _kernel_phase("huf_decode", dh, hops, lambda o: (o,), "nsym", card)
-    fse = _kernel_phase("fse_decode", df, fops, lambda o: o, "nseq", card)
+    huf = _kernel_phase("huf_decode", dh, hops, lambda o: (o,), "nsym",
+                        huf_work, card)
+    fse = _kernel_phase("fse_decode", df, fops, lambda o: o, "nseq",
+                        fse_work, card)
 
     # ---- the decode path, once, through the user entry point ----
     all_in = recs + extras
@@ -670,7 +703,7 @@ def main() -> int:
     _stream_profile(big, dev, card)
 
     kernels = []
-    for name, (err, ms, plain_ms), src, rep in (
+    for name, (err, ms, plain_ms, bound_ms, bound_by, lib_ms), src, rep in (
             ("huf_decode", huf, "huf_decode.cu", "device_huf.py:238"),
             ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
             ("histogram", hist, "histogram.cu", "histogram.py:36")):
@@ -678,7 +711,8 @@ def main() -> int:
                         "source": f"zstdsharp_tpu_torch/csrc/{src}",
                         "replaces": f"zstdsharp_tpu/ops/{rep}",
                         "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ data-parallel compressor on the card against their CPU runs.  With two
 cards or more, the kernels launched from a worker thread on the second
 card and the stream codec over a mesh of cards.
 
-These tests need an NVIDIA GPU and skip elsewhere.  They import neither JAX
-nor zstandard, so they also run on a machine that has neither:
+These tests need an NVIDIA GPU and skip elsewhere.  They import only the
+port (and the repository's data generator ``bench.make_corpus``): neither
+JAX, nor the JAX package, nor zstandard, so they also run on a machine that
+has none of them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -16,11 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from zstdsharp_tpu.decode.frame import decompress
-from zstdsharp_tpu.encode.frame import compress
 from zstdsharp_tpu_torch.decode import device_pipeline as dp
-from zstdsharp_tpu_torch.decode.frame import Decompressor
+from zstdsharp_tpu_torch.decode.frame import Decompressor, decompress
 from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
+from zstdsharp_tpu_torch.encode.frame import compress
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
 from zstdsharp_tpu_torch.ops import histogram as hg
@@ -97,6 +98,90 @@ def test_fse_kernel_equals_plain(planned):
     want = df.decode_plain(*(ops[k] for k in df._OPERANDS), got[0].shape[1])
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _fse_window(frames, cuda):
+    plan = dp.plan_batch(frames)
+    ops = dp.ops_to_device(plan.nb.fse_ops(0), cuda)
+    dp._release_ops(plan.nb, None)
+    return ops
+
+
+def _fse_equal_plain(ops):
+    """Launch the FSE kernel once on `ops`, synchronise, hold it against
+    the plain version; the rows are zero past each lane's count."""
+    before = df.decode_lanemajor.launches
+    got = df.decode_lanemajor(ops)
+    torch.cuda.synchronize()
+    assert df.decode_lanemajor.launches == before + 1
+    t_len = got[0].shape[1]
+    want = df.decode_plain(*(ops[k] for k in df._OPERANDS), t_len)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    n = ops["nseq"].long().clamp(0, t_len)
+    dead = torch.arange(t_len, device=n.device)[None, :] >= n[:, None]
+    assert all(bool((g.masked_select(dead) == 0).all()) for g in got)
+    return got
+
+
+@pytest.mark.parametrize("wb,rec_kb", [(1024, 24), (2048, 48)])
+def test_fse_kernel_planner_windows(cuda, wb, rec_kb):
+    """The planner's window of bench-corpus records at level 9: 24 KB
+    records make the main path's Wb 1024 bucket, 48 KB ones Wb 2048."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from bench import make_corpus
+
+    n = rec_kb << 10
+    data = make_corpus(48 * n)
+    ops = _fse_window([compress(data[i:i + n], 9)
+                       for i in range(0, len(data), n)], cuda)
+    assert ops["words"].shape[1] == wb
+    assert int(ops["nseq"].max()) > 1000
+    _fse_equal_plain(ops)
+
+
+def test_fse_kernel_idle_and_padding_lanes(cuda):
+    """Padding lanes (the window rounds 37 lanes up) and lanes set to
+    nseq = 0 decode nothing and are all zeros."""
+    frames = [compress(x, 9) for x in _records(37, 6_000, 17)]
+    ops = _fse_window(frames, cuda)
+    assert ops["words"].shape[0] > 37 and int(ops["nseq"][37:].max()) == 0
+    ops["nseq"][::5] = 0
+    got = _fse_equal_plain(ops)
+    assert not any(bool(g[::5].any()) for g in got)
+
+
+def test_fse_kernel_early_end_frame(cuda):
+    ops = _fse_window([EARLY_END_FRAME], cuda)
+    assert int(ops["nseq"][0]) == 129
+    _fse_equal_plain(ops)
+
+
+@pytest.mark.parametrize("nl,wb,seed", [(1, 64, 1), (33, 1536, 2),
+                                        (300, 2048, 3), (1024, 256, 4),
+                                        (5, 10400, 5)])
+def test_fse_kernel_random_window(cuda, nl, wb, seed):
+    """Random tables, states and words from a seed: the plain version's
+    values, and no illegal address (the synchronise would raise).  Wb
+    10400 puts one lane's block just under 48 KB of dynamic shared memory,
+    over it with the static part: the launch must opt in."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, lo=-2**31, hi=2**31):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).to(cuda)
+
+    st = rand(nl, 8)
+    # half the lanes start inside their words, the rest anywhere
+    st[::2, 0] = rand((nl + 1) // 2, lo=-64, hi=32 * wb + 64)
+    st[1::4, 4:7] = rand(len(range(1, nl, 4)), 3, lo=-5, hi=600)
+    ops = {"words": rand(nl, wb), "ll": rand(nl, df.NSTATES),
+           "of": rand(nl, df.NSTATES_OF), "ml": rand(nl, df.NSTATES),
+           "st": st, "nseq": rand(nl, lo=-3, hi=400), "t_max": 400}
+    _fse_equal_plain(ops)
 
 
 def test_corrupt_operands_do_not_fault(planned, cuda):

@@ -13,9 +13,9 @@ import zstandard
 from zstdsharp_tpu.decode import device_pipeline as ref
 from zstdsharp_tpu.decode.frame import parse_frame_header
 from zstdsharp_tpu.encode.frame import compress
-from zstdsharp_tpu.errors import ZstdError, ZstdErrorCode
 from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor
+from zstdsharp_tpu_torch.errors import ZstdError, ZstdErrorCode
 
 CPU = torch.device("cpu")
 
@@ -226,7 +226,7 @@ def test_dictionary_raises_not_implemented():
     with pytest.raises(NotImplementedError):
         dec.unwrap_many_device(frames, CPU)
     with pytest.raises(NotImplementedError):
-        dp.decode_batch_device(frames, CPU, ddict=dec._dict._parsed)
+        dp.decode_batch_device(frames, CPU, ddict=dec._dict)
 
 
 def test_unwrap_many_device_entry_point():
@@ -238,9 +238,13 @@ def test_unwrap_many_device_entry_point():
     assert [rows[k, :lens[k]].tobytes() for k in range(4)] == recs
 
 
-def test_missing_native_planner_raises(monkeypatch):
-    monkeypatch.setattr(dp.native, "get_lib", lambda: None)
-    with pytest.raises(RuntimeError, match="native planner"):
+def test_missing_native_planner_raises(monkeypatch, tmp_path):
+    # an engine that can be neither loaded nor built
+    monkeypatch.setattr(dp.native, "_lib", None)
+    monkeypatch.setattr(dp.native, "SRC", tmp_path / "missing.cpp")
+    monkeypatch.setattr(dp.native, "TRACKED_LIB", tmp_path / "missing.so")
+    monkeypatch.setattr(dp.native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="native host engine"):
         dp.decode_batch_device([compress(b"abc" * 100, 3)], CPU)
 
 

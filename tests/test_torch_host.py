@@ -1,0 +1,415 @@
+"""The port's own host tier against the JAX package's, byte for byte.
+
+The port keeps its own copy of the host code it reaches (constants, frame
+parsing and writing, the native-routed ``compress`` and ``decompress``,
+the FSE and Huffman table builders and writers, the block decoders the
+device planner's host route uses, ``scan_eligibility``).  Every case feeds
+the same inputs, made from numpy seeds, to the port and to
+``zstdsharp_tpu`` and asserts equal bytes, fields or arrays.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import zstandard
+
+from zstdsharp_tpu import constants as RC
+from zstdsharp_tpu.decode import block as rblock
+from zstdsharp_tpu.decode import device_pipeline as rdp
+from zstdsharp_tpu.decode import frame as rframe
+from zstdsharp_tpu.encode import frame as renc
+from zstdsharp_tpu.entropy import fse as rfse
+from zstdsharp_tpu.entropy import huffman as rhuf
+from zstdsharp_tpu.utils.xxhash import content_checksum as r_checksum
+from zstdsharp_tpu_torch import constants as C
+from zstdsharp_tpu_torch import native
+from zstdsharp_tpu_torch.decode import block
+from zstdsharp_tpu_torch.decode import device_pipeline as dp
+from zstdsharp_tpu_torch.decode import frame
+from zstdsharp_tpu_torch.encode import frame as enc
+from zstdsharp_tpu_torch.entropy import fse, huffman
+from zstdsharp_tpu_torch.errors import ZstdError
+from zstdsharp_tpu_torch.utils.xxhash import content_checksum
+
+LEVELS = (1, 3, 5, 9, 19)
+SIZES = (0, 1, 255, 256, 4096, (128 << 10) + 1, 400_000)
+
+
+def _data(n: int, seed: int = 3) -> bytes:
+    """Seeded compressible bytes: words, with a stretch of noise."""
+    r = np.random.default_rng(seed + n)
+    words = [b"sequence", b"literal", b"offset", b"match", b"frame ",
+             b"block", b"huffman", b"table", b"\n", b"0123"]
+    out = b"".join(words[int(i)] for i in r.integers(0, len(words), n // 4 + 8))
+    noise = r.integers(0, 256, n // 8, dtype=np.uint8).tobytes()
+    return (out[:n // 2] + noise + out[n // 2:])[:n]
+
+
+# ---------------------------------------------------------------------------
+# constants
+# ---------------------------------------------------------------------------
+
+_CONSTANTS = sorted(k for k in vars(C) if k.isupper() and not k.startswith("_"))
+
+
+@pytest.mark.parametrize("name", _CONSTANTS)
+def test_constant_equals_reference(name):
+    mine, ref = getattr(C, name), getattr(RC, name)
+    if isinstance(mine, np.ndarray):
+        assert mine.dtype == ref.dtype and np.array_equal(mine, ref)
+    else:
+        assert mine == ref
+
+
+@pytest.mark.parametrize("name", ["BlockType", "LiteralsBlockType",
+                                  "SymbolEncodingType", "Strategy"])
+def test_enum_equals_reference(name):
+    mine, ref = getattr(C, name), getattr(RC, name)
+    assert [(e.name, int(e)) for e in mine] == [(e.name, int(e)) for e in ref]
+
+
+# ---------------------------------------------------------------------------
+# compress / decompress
+# ---------------------------------------------------------------------------
+
+_FRAMES: dict = {}
+
+
+def _frame(level: int, size: int, checksum: bool = False) -> bytes:
+    key = (level, size, checksum)
+    if key not in _FRAMES:
+        _FRAMES[key] = renc.compress(_data(size), level, checksum=checksum)
+    return _FRAMES[key]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("level", LEVELS)
+def test_compress_equals_reference(level, size):
+    assert enc.compress(_data(size), level) == _frame(level, size)
+
+
+@pytest.mark.parametrize("level", (-5, -1, 0, 4, 12, 22))
+@pytest.mark.parametrize("size", (100, 5000))
+def test_compress_other_levels_and_checksum_equal_reference(level, size):
+    data = _data(size, seed=11)
+    assert enc.compress(data, level, checksum=True) == renc.compress(
+        data, level, checksum=True)
+
+
+def _expected_route(level: int, size: int) -> str:
+    if level in (1, 3, 19):
+        return "exact"
+    return "frame_body" if size >= 256 else "estream"
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("level", LEVELS)
+def test_compress_route_is_pinned(level, size, monkeypatch):
+    """Which native route makes each frame: the exact encoder for the
+    fast, dfast and bt levels, the whole-frame encoder for the lazy levels
+    from 256 bytes up, the streaming encoder below 256 bytes."""
+    calls = []
+    for name in ("compress_exact", "compress_frame_body", "NativeEStream"):
+        real = getattr(native, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(native, name, spy)
+    assert enc.compress(_data(size), level) == _frame(level, size)
+    assert calls == {"exact": ["compress_exact"],
+                     "frame_body": ["compress_exact", "compress_frame_body"],
+                     "estream": ["compress_exact", "NativeEStream"]}[
+                         _expected_route(level, size)]
+
+
+def _special_frames():
+    """(name, frame): raw, RLE, checksummed, multi-frame with a skippable
+    frame, and libzstd frames without a content size."""
+    noise = np.random.default_rng(5).integers(0, 256, 5000,
+                                              dtype=np.uint8).tobytes()
+    zc = zstandard.ZstdCompressor(level=3, write_content_size=False,
+                                  write_checksum=True)
+    skippable = (0x184D2A53).to_bytes(4, "little") + (5).to_bytes(
+        4, "little") + b"skip!"
+    return [
+        ("raw", renc.compress(noise, 9)),
+        ("rle", renc.compress(b"Q" * 30_000, 9)),
+        ("checksum", renc.compress(_data(50_000), 5, checksum=True)),
+        ("checksum_multiblock", renc.compress(_data(300_000), 3,
+                                              checksum=True)),
+        ("multiframe", renc.compress(b"abc" * 100, 1) + skippable
+         + renc.compress(_data(9000), 19)),
+        ("no_content_size", zc.compress(_data(200_000))),
+    ]
+
+
+_SPECIAL = _special_frames()
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("level", LEVELS)
+def test_decompress_equals_reference(level, size):
+    f = _frame(level, size)
+    assert frame.decompress(f) == rframe.decompress(f) == _data(size)
+
+
+@pytest.mark.parametrize("name,f", _SPECIAL, ids=[n for n, _ in _SPECIAL])
+def test_decompress_special_frames_equal_reference(name, f):
+    assert frame.decompress(f) == rframe.decompress(f)
+
+
+def test_decompress_raises_on_bad_checksum_as_reference():
+    f = bytearray(_SPECIAL[2][1])
+    f[-1] ^= 1
+    with pytest.raises(ZstdError) as mine:
+        frame.decompress(bytes(f))
+    with pytest.raises(Exception) as ref:
+        rframe.decompress(bytes(f))
+    assert int(mine.value.code) == int(ref.value.code)
+
+
+def _header_cases():
+    return ([(f"L{lv}-{n}", _frame(lv, n)) for lv in (1, 9) for n in SIZES]
+            + _SPECIAL)
+
+
+_HEADERS = _header_cases()
+
+
+@pytest.mark.parametrize("name,f", _HEADERS, ids=[n for n, _ in _HEADERS])
+def test_frame_header_and_size_equal_reference(name, f):
+    buf = np.frombuffer(f, np.uint8)
+    assert (dataclasses.asdict(frame.parse_frame_header(buf))
+            == dataclasses.asdict(rframe.parse_frame_header(buf)))
+    assert (frame.find_frame_compressed_size(f)
+            == rframe.find_frame_compressed_size(f))
+
+
+@pytest.mark.parametrize("args", [
+    (0, 10, False, True), (1, 17, True, True), (255, 14, False, True),
+    (256, 17, True, True), (65791, 19, False, True), (65792, 19, True, True),
+    (1 << 20, 17, False, True), (5 << 30, 22, True, True),
+    (1000, 20, False, False), (-1, 21, True, True), (300, 10, False, True, 7),
+    (300, 10, False, True, 70_000)])
+def test_write_frame_header_equals_reference(args):
+    assert enc._write_frame_header(*args) == renc._write_frame_header(*args)
+
+
+@pytest.mark.parametrize("last", (False, True))
+@pytest.mark.parametrize("btype", list(C.BlockType))
+@pytest.mark.parametrize("size", (0, 1, 1000, (1 << 17)))
+def test_block_header_equals_reference(last, btype, size):
+    assert (enc._block_header(last, btype, size)
+            == renc._block_header(last, RC.BlockType(int(btype)), size))
+
+
+@pytest.mark.parametrize("size", (0, 1, 31, 32, 1000, 100_003))
+def test_content_checksum_equals_reference(size):
+    d = _data(size, seed=21)
+    assert content_checksum(d) == r_checksum(d)
+    assert content_checksum(np.frombuffer(d, np.uint8)) == r_checksum(d)
+
+
+# ---------------------------------------------------------------------------
+# the planner's header probe
+# ---------------------------------------------------------------------------
+
+
+def _mixed_batch():
+    recs = [_data(6000, seed=s) for s in range(4)]
+    frames = [renc.compress(r, lv) for r, lv in zip(recs, (1, 5, 9, 19))]
+    frames += [f for _, f in _SPECIAL if _ != "multiframe"]
+    frames.append(renc.compress(_data(600_000), 3))        # multi-block
+    frames.append(_frame(9, 400_000)[:40])                 # truncated
+    rng = np.random.default_rng(4)
+    samples = [bytes(rng.integers(97, 100, 200, dtype=np.uint8))
+               for _ in range(100)]
+    d = zstandard.train_dictionary(2048, samples)
+    frames.append(zstandard.ZstdCompressor(level=3, dict_data=d).compress(
+        samples[0] * 4))                                   # dictionary
+    return frames
+
+
+@pytest.mark.parametrize("single_block_only", (False, True))
+def test_scan_eligibility_equals_reference(single_block_only):
+    frames = _mixed_batch()
+    got = dp.scan_eligibility(frames, single_block_only=single_block_only)
+    assert got == rdp.scan_eligibility(frames,
+                                       single_block_only=single_block_only)
+    assert got  # the batch holds host-routed frames
+
+
+def test_lit_header_and_buckets_equal_reference():
+    for f in [_frame(lv, 4096) for lv in LEVELS] + [f for _, f in _SPECIAL]:
+        hdr = frame.parse_frame_header(np.frombuffer(f, np.uint8))
+        p = hdr.header_size + 3
+        assert dp._parse_lit_header(f[p:p + 5]) == rdp._parse_lit_header(
+            f[p:p + 5])
+    for name in ("EXEC_LANES", "MB_CONTENT_CAP", "MB_WINDOW_CAP",
+                 "_O_BUCKETS", "_S_BUCKETS", "_MBC_BUCKETS", "_MBW_BUCKETS",
+                 "_NATIVE_ROUTE"):
+        assert getattr(dp, name) == getattr(rdp, name)
+    for v in (1, 256, 257, 4096, 30_000, 1 << 22):
+        assert dp._bucket(v, dp._MBW_BUCKETS) == rdp._bucket(
+            v, rdp._MBW_BUCKETS)
+    mb = [{"window": w, "content": c, "frame_idx": i}
+          for i, (w, c) in enumerate([(1 << 15, 300_000), (1 << 17, 300_000),
+                                      (1 << 15, 300_000)] * 7)]
+    assert dp._mb_groups(mb) == rdp._mb_groups(mb)
+
+
+# ---------------------------------------------------------------------------
+# FSE and Huffman tables
+# ---------------------------------------------------------------------------
+
+
+def _counts(seed: int, n_sym: int, total: int) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    p = r.dirichlet(np.full(n_sym, 0.3))
+    c = r.multinomial(total, p).astype(np.int64)
+    if (c > 0).sum() < 2:
+        c[:2] += 1
+    return c
+
+
+_FSE_CASES = [(s, n, t, tl) for s, (n, t, tl) in enumerate(
+    [(36, 500, 9), (53, 2000, 9), (29, 120, 8), (13, 40, 6), (256, 5000, 11),
+     (5, 33, 5), (36, 100_000, 9), (53, 90, 7)])]
+
+
+@pytest.mark.parametrize("seed,n_sym,total,tlog", _FSE_CASES)
+def test_fse_tables_equal_reference(seed, n_sym, total, tlog):
+    c = _counts(seed, n_sym, total)
+    total = int(c.sum())
+    max_sym = int(np.nonzero(c)[0][-1])
+    tlog = max(tlog, fse.min_table_log(total, max_sym))
+    tlog = min(tlog, 12)
+    assert fse.optimal_table_log(tlog, total, max_sym) == \
+        rfse.optimal_table_log(tlog, total, max_sym)
+    for low in (False, True):
+        norm = fse.normalize_count(c[:max_sym + 1], tlog, total, max_sym, low)
+        rnorm = rfse.normalize_count(c[:max_sym + 1], tlog, total, max_sym,
+                                     low)
+        assert norm.dtype == rnorm.dtype and np.array_equal(norm, rnorm)
+        hdr = fse.write_ncount(norm, max_sym, tlog)
+        assert hdr == rfse.write_ncount(rnorm, max_sym, tlog)
+        ct, rct = fse.build_ctable(norm, max_sym, tlog), rfse.build_ctable(
+            rnorm, max_sym, tlog)
+        for f in ("table_log", "max_symbol"):
+            assert getattr(ct, f) == getattr(rct, f)
+        for f in ("state_table", "delta_nb_bits", "delta_find_state", "norm"):
+            assert np.array_equal(getattr(ct, f), getattr(rct, f))
+        got = fse.read_ncount(hdr + b"\x00\x00", max_sym, tlog)
+        want = rfse.read_ncount(hdr + b"\x00\x00", max_sym, tlog)
+        assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+        dt = fse.build_dtable(got[0], got[1], got[2])
+        rdt = rfse.build_dtable(want[0], want[1], want[2])
+        for f in ("symbol", "nb_bits", "new_state"):
+            assert np.array_equal(getattr(dt, f), getattr(rdt, f))
+
+
+@pytest.mark.parametrize("seed,n_sym,total", [
+    (1, 256, 20_000), (2, 40, 300), (3, 128, 1_000), (4, 200, 131_072),
+    (5, 3, 10), (6, 256, 600), (7, 90, 50_000)])
+def test_huffman_tables_equal_reference(seed, n_sym, total):
+    c = _counts(seed + 100, n_sym, total)
+    max_sym = int(np.nonzero(c)[0][-1])
+    ct = huffman.build_ctable(c, max_sym, 11)
+    rct = rhuf.build_ctable(c, max_sym, 11)
+    assert (ct.table_log, ct.max_symbol) == (rct.table_log, rct.max_symbol)
+    assert np.array_equal(ct.nb_bits, rct.nb_bits)
+    assert np.array_equal(ct.code, rct.code)
+    desc = huffman.write_ctable(ct)
+    assert desc == rhuf.write_ctable(rct)
+    w, tlog, n = huffman.read_weights(desc + b"\x00" * 8)
+    rw, rtlog, rn = rhuf.read_weights(desc + b"\x00" * 8)
+    assert np.array_equal(w, rw) and (tlog, n) == (rtlog, rn)
+    dt, rdt = huffman.build_dtable(w, tlog), rhuf.build_dtable(rw, rtlog)
+    assert np.array_equal(dt.symbol, rdt.symbol)
+    assert np.array_equal(dt.nb_bits, rdt.nb_bits)
+
+
+# ---------------------------------------------------------------------------
+# block decoders on blocks taken from real frames
+# ---------------------------------------------------------------------------
+
+
+def _compressed_blocks(f: bytes):
+    """Every compressed block body of a frame."""
+    hdr = rframe.parse_frame_header(np.frombuffer(f, np.uint8))
+    p, out = hdr.header_size, []
+    while True:
+        bh = int.from_bytes(f[p:p + 3], "little")
+        btype, bsize = (bh >> 1) & 3, bh >> 3
+        if btype == 2:
+            out.append(f[p + 3:p + 3 + bsize])
+        p += 3 + (1 if btype == 1 else bsize)
+        if bh & 1:
+            return out
+
+
+_BLOCK_FRAMES = [(lv, n) for lv in LEVELS for n in (4096, 400_000)] + [
+    (3, 1000), (19, 255)]
+
+
+@pytest.mark.parametrize("level,size", _BLOCK_FRAMES)
+def test_block_decoders_equal_reference(level, size):
+    blocks = _compressed_blocks(_frame(level, size))
+    assert blocks
+    ent, rent = block.EntropyState(), rblock.EntropyState()
+    for body in blocks:
+        lits, n = block.decode_literals(body, ent)
+        rlits, rn = rblock.decode_literals(body, rent)
+        assert n == rn and np.array_equal(lits, rlits)
+        got = block.decode_sequence_headers(body[n:], ent)
+        want = rblock.decode_sequence_headers(body[rn:], rent)
+        assert got[0] == want[0] and got[4] == want[4]
+        if got[0] == 0:
+            continue
+        for dt, rdt in zip(got[1:4], want[1:4]):
+            assert dt.table_log == rdt.table_log
+            for f in ("symbol", "nb_bits", "new_state", "base_value",
+                      "nb_add_bits"):
+                assert np.array_equal(getattr(dt, f), getattr(rdt, f))
+        seqs = block.decode_sequences(body[n + got[4]:], got[0], *got[1:4],
+                                      ent.rep)
+        rseqs = rblock.decode_sequences(body[rn + want[4]:], want[0],
+                                        *want[1:4], rent.rep)
+        assert all(np.array_equal(a, b) for a, b in zip(seqs, rseqs))
+        assert list(ent.rep) == list(rent.rep)
+
+
+def _few_matches(k: int, seed: int) -> bytes:
+    """Seeded noise with one 12-byte segment repeated k times."""
+    r = np.random.default_rng(seed)
+    seg = r.integers(0, 256, 12, dtype=np.uint8).tobytes()
+    return b"".join(r.integers(0, 256, 5, dtype=np.uint8).tobytes() + seg
+                    for _ in range(k)) + b"tail"
+
+
+@pytest.mark.parametrize("nb_seq", (1, 5, 8))
+def test_short_sequence_sections_equal_reference(nb_seq):
+    """Sections of <= 8 sequences take the pure-Python loop in both."""
+    for level in (1, 9, 19):
+        for k in range(1, 3 * nb_seq + 4):
+            body = _compressed_blocks(renc.compress(_few_matches(k, k),
+                                                    level))
+            if not body:
+                continue
+            ent, rent = block.EntropyState(), rblock.EntropyState()
+            _, n = block.decode_literals(body[0], ent)
+            rblock.decode_literals(body[0], rent)
+            got = block.decode_sequence_headers(body[0][n:], ent)
+            want = rblock.decode_sequence_headers(body[0][n:], rent)
+            if got[0] != nb_seq:
+                continue
+            a = block.decode_sequences(body[0][n + got[4]:], got[0],
+                                       *got[1:4], ent.rep)
+            b = rblock.decode_sequences(body[0][n + want[4]:], want[0],
+                                        *want[1:4], rent.rep)
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+            assert list(ent.rep) == list(rent.rep)
+            return
+    pytest.fail(f"no seeded block with {nb_seq} sequences")

@@ -1,12 +1,15 @@
 """The port stands alone: importing it pulls in no JAX and initialises no
-CUDA, its sources import no JAX, and chip_smoke.py refuses to report a
-result without a CUDA device or outside a checkout."""
+CUDA, its sources import neither JAX nor the JAX package, running its CPU
+paths loads no module of the JAX package, its native loader writes nothing
+under native/, and chip_smoke.py refuses to report a result without a CUDA
+device or outside a checkout."""
 
 import os
 import re
 import shutil
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -50,6 +53,123 @@ def test_sources_import_no_jax():
     assert len(files) >= 17
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+_REF_IMPORT = re.compile(r"^\s*(from|import)\s+zstdsharp_tpu(\.|\s|$)", re.M)
+
+
+def _port_files():
+    files = sorted((ROOT / "zstdsharp_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_reference_import_pattern():
+    """The pattern catches the JAX package and not the port's own name."""
+    for line in ("import zstdsharp_tpu", "from zstdsharp_tpu import native",
+                 "  from zstdsharp_tpu.decode.frame import decompress",
+                 "import zstdsharp_tpu.ops as ops"):
+        assert _REF_IMPORT.search(line), line
+    for line in ("import zstdsharp_tpu_torch",
+                 "from zstdsharp_tpu_torch.decode import frame",
+                 "    from zstdsharp_tpu_torch import native",
+                 "# from zstdsharp_tpu import native"):
+        assert not _REF_IMPORT.search(line), line
+
+
+def test_sources_import_no_reference_package():
+    files = _port_files()
+    assert len(files) >= 25
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if _REF_IMPORT.search(f.read_text())]
+    assert not bad, f"files importing zstdsharp_tpu: {bad}"
+
+
+def test_cpu_paths_load_no_reference_module():
+    """Import every port module, then run the CPU decode plane (a
+    multi-block frame and a host-routed one among the frames), the CPU
+    encode plane and the port's compress / decompress in a clean process:
+    no module of the JAX package, and no JAX, may be loaded."""
+    code = textwrap.dedent("""\
+        import importlib, pkgutil, sys
+        import numpy as np
+        import zstdsharp_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        from zstdsharp_tpu_torch.decode.device_pipeline import (
+            decode_batch_device)
+        from zstdsharp_tpu_torch.decode.frame import decompress
+        from zstdsharp_tpu_torch.encode.device_pipeline import (
+            compress_batch_device)
+        from zstdsharp_tpu_torch.encode.frame import compress
+
+        r = np.random.default_rng(1)
+        words = [b"alpha ", b"beta ", b"gamma ", b"delta "]
+        text = lambda n: b"".join(words[i] for i in r.integers(0, 4, n))
+        recs = [text(n) for n in (700, 900, 1200)]
+        multi = text(60_000)      # 360 KB: multi-block, on the device
+        huge = text(900_000)      # over 4 MB: routed to the host engine
+        frames = [compress(x, 9) for x in recs]
+        frames += [compress(multi, 3), compress(huge, 1)]
+        out, stats = decode_batch_device(frames, "cpu", materialize=True)
+        assert out == recs + [multi, huge], "decode"
+        assert stats == {"device_frames": 4, "host_frames": 1}, stats
+        enc, estats = compress_batch_device(recs, "cpu", materialize=True)
+        assert [decompress(f) for f in enc] == recs, "encode"
+        assert estats["device_frames"] == 3, estats
+        assert decompress(compress(multi, 5, checksum=True)) == multi
+        bad = sorted(k for k in sys.modules
+                     if k == "zstdsharp_tpu" or k.startswith("zstdsharp_tpu."))
+        assert not bad, bad
+        assert "jax" not in sys.modules, "jax imported"
+        print("ok")
+        """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("tracked_fresh", [True, False],
+                         ids=["tracked", "build"])
+def test_native_loader_writes_nothing_under_native(tmp_path, tracked_fresh):
+    """In a copy of the port beside the engine's source and tracked
+    library: a library not older than the source is loaded as it is;
+    otherwise the source is built into build/host/ and that is loaded.
+    Either way native/ is left as it was (no file added, none rewritten).
+    The copy keeps the check apart from the JAX package, which rebuilds the
+    real native/ library in place when it finds it stale."""
+    shutil.copytree(ROOT / "zstdsharp_tpu_torch",
+                    tmp_path / "zstdsharp_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    native_dir = tmp_path / "native"
+    native_dir.mkdir()
+    for name in ("zstdtpu_core.cpp", "libzstdtpu_core.so"):
+        shutil.copy2(ROOT / "native" / name, native_dir / name)
+    t = (native_dir / "zstdtpu_core.cpp").stat().st_mtime
+    t += 10 if tracked_fresh else -10
+    os.utime(native_dir / "libzstdtpu_core.so", (t, t))
+
+    def snapshot():
+        return {p.name: (p.stat().st_mtime_ns, p.stat().st_size)
+                for p in native_dir.iterdir()}
+
+    before = snapshot()
+    code = ("from zstdsharp_tpu_torch import native\n"
+            "lib = native.get_lib()\n"
+            "assert native.xxh64(b'abc') == 0x44BC2CF5AD770999\n"
+            "print(lib._name)\n")
+    env = _clean_env()
+    env["PYTHONPATH"] = str(tmp_path)
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stderr
+    assert snapshot() == before
+    built = sorted((tmp_path / "build" / "host").glob("libzstdtpu_core.*.so"))
+    loaded = Path(r.stdout.strip())
+    if tracked_fresh:
+        assert loaded == native_dir / "libzstdtpu_core.so" and not built
+    else:
+        assert built == [loaded]
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -9,8 +9,10 @@ runs the greedy parse, FSE and Huffman coding and frame assembly in torch,
 with its literal byte histogram as a hand-written CUDA kernel.  On CPU
 tensors every kernel wrapper runs its plain torch version instead.
 
-The host tiers (frame parsing, entropy tables, the native planner) are
-imported unchanged from ``zstdsharp_tpu``; nothing here imports JAX.
+The port stands alone: its host tier (frame parsing and the host codec,
+entropy tables, the native planner and its ctypes binding of
+native/zstdtpu_core.cpp) is its own copy of the reference's, and nothing
+here imports JAX or the ``zstdsharp_tpu`` package.
 Importing this package initialises no CUDA state and builds nothing: the
 kernels are compiled with nvcc on first use (``_build.py``).
 """

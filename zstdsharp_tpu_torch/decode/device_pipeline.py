@@ -7,13 +7,13 @@ sections through ``ops.device_fse`` (hand-written CUDA kernels on a GPU,
 their plain torch versions on the CPU), literal assembly and LZ execution
 through ``ops.execseq`` in torch.  Decoded rows stay on the device.
 
-The host half is the reference's: the native planner (``zt_dplane_*`` in
-native/zstdtpu_core.cpp) packs lane-major operands into pooled numpy
-buffers, and the reference's JAX-free helpers (``_BlockPlan``,
-``DevicePlan``, ``_NATIVE_ROUTE``, ``_parse_lit_header``, ``_bucket``,
-``_mb_groups`` and the shape buckets) are imported unchanged.  What the
-reference's planner took from its JAX kernel modules now comes from this
-package's ops modules, and its JAX upload fence is a ``torch.cuda.Event``.
+The host half is the port's own copy of the reference's: the native
+planner (``zt_dplane_*`` in native/zstdtpu_core.cpp, bound by the port's
+``native``) packs lane-major operands into pooled numpy buffers
+(``_NativeOps``), and the plan records (``_BlockPlan``, ``DevicePlan``),
+the header probe ``scan_eligibility``, the shape buckets and the caps
+mirror the reference's.  The reference's JAX upload fence is a
+``torch.cuda.Event``.
 
 Coverage is the reference's envelope: single-block frames up to 128 KB and
 multi-block frames up to 4 MB (as dependent execution rounds) run on the
@@ -26,36 +26,329 @@ back to the list-based ``prepare_batch`` route.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from zstdsharp_tpu import native
-from zstdsharp_tpu.decode.block import (EntropyState, decode_literals,
-                                        decode_sequence_headers,
-                                        decode_sequences)
-from zstdsharp_tpu.decode.device_pipeline import (
-    _MBC_BUCKETS, _MBW_BUCKETS, _NATIVE_ROUTE, _O_BUCKETS, _S_BUCKETS,
-    EXEC_LANES, MB_CONTENT_CAP, MB_WINDOW_CAP, DevicePlan, _BlockPlan,
-    _bucket, _mb_groups, _parse_lit_header)
-from zstdsharp_tpu.decode.device_pipeline import _NativeOps as _RefNativeOps
-from zstdsharp_tpu.decode.frame import decompress, parse_frame_header
-from zstdsharp_tpu.entropy import huffman
-from zstdsharp_tpu.errors import ZstdError, ZstdErrorCode
-from zstdsharp_tpu.utils.xxhash import content_checksum
-
+from .. import native
+from ..entropy import huffman
+from ..errors import ZstdError, ZstdErrorCode
 from ..ops import device_fse as df
 from ..ops import device_huf as dh
 from ..ops.execseq import make_executor
+from ..utils.xxhash import content_checksum
+from .block import (EntropyState, decode_literals, decode_sequence_headers,
+                    decode_sequences)
+from .frame import decompress, parse_frame_header
+
+# exec batching: lanes per exec call x output bucket
+EXEC_LANES = 64
+_O_BUCKETS = (1 << 12, 24576, 1 << 15, 1 << 17)
+_S_BUCKETS = (256, 1024, 4096, 8192, 16384, 32768)
+# multi-block envelope: total content / window the dependent-round
+# executor supports (accumulator memory: F x (W + content))
+MB_CONTENT_CAP = 1 << 22
+MB_WINDOW_CAP = 1 << 22
+_MBC_BUCKETS = (1 << 18, 1 << 20, 1 << 22)
+_MBW_BUCKETS = (1 << 15, 1 << 17, 1 << 20, 1 << 22)
 
 
-class _NativeOps(_RefNativeOps):
-    """The reference's pooled native operand buffers, with the three
-    methods that reached into its JAX kernel modules pointed at this
-    package's ops modules.  ``fence`` is a ``torch.cuda.Event`` recorded
-    after the batch's uploads (None on the CPU)."""
+def _bucket(v, buckets):
+    for x in buckets:
+        if v <= x:
+            return x
+    raise ValueError(f"{v} exceeds device envelope {buckets[-1]}")
+
+
+@dataclass
+class _BlockPlan:
+    frame_idx: int
+    out_len: int
+    lit_regen: int
+    # stored xxh64 content checksum (low 32 bits), or -1 if absent
+    checksum: int = -1
+    # literals: kind 0 = raw pool span, 1 = Huffman device lanes
+    lit_kind: int = 0
+    pool_base: int = 0
+    pool_len: int = 0
+    huf_lane0: int = -1
+    huf_seg: int = 0
+    # sequences: kind 0 = none, 1 = device FSE lane, 2 = host arrays row
+    seq_kind: int = 0
+    fse_lane: int = -1
+    host_row: int = -1
+    n_seq: int = 0
+    out_off: int = 0   # multi-block: output offset within the frame
+
+
+@dataclass
+class DevicePlan:
+    """A batch's plan.  Every lane and the raw pool live in the native
+    operand buffers ``nb`` (a ``_NativeOps``)."""
+
+    nb: "_NativeOps"
+    n_frames: int = 0
+    blocks: list = field(default_factory=list)
+    host_seqs: list = field(default_factory=list)  # (ll, ml, of) np arrays
+    host_routed: dict = field(default_factory=dict)  # frame_idx -> reason
+    max_out: int = 0
+    max_seq: int = 0
+    # multi-block frames: dicts {frame_idx, content, checksum, window,
+    # blocks: [_BlockPlan with out_len / out_off per block]}
+    mb_frames: list = field(default_factory=list)
+
+    def pool_add(self, b) -> int:
+        return self.nb.pool_add(bytes(b))
+
+    def add_huf_lane(self, payload, weights, n_out) -> int:
+        lane = self.nb.pack_huf(bytes(payload), weights, n_out)
+        if lane < 0:
+            raise ValueError("corrupt stream: zero last byte")
+        return lane
+
+    def add_fse_lane(self, payload, dts, nseq, rep) -> int:
+        lane = self.nb.pack_fse(bytes(payload), dts, rep, nseq)
+        if lane < 0:
+            raise ValueError("corrupt stream: zero last byte")
+        self.max_seq = max(self.max_seq, nseq)
+        return lane
+
+
+# Host-route reasons by native planner code (zt_dplane_batch).
+_NATIVE_ROUTE = {
+    1: "no content size",
+    2: "dictionary required",
+    3: "content/window beyond device caps",
+    4: "corrupt: truncated block",
+    5: "corrupt: block size",
+    6: "corrupt: literal section bounds",
+    7: "treeless literals, no dict table",
+    8: "corrupt: reserved block type",
+    9: "corrupt: huffman weights",
+    10: "corrupt: sequence headers",
+}
+
+
+def _parse_lit_header(payload: bytes):
+    """(lit_type, size_format, regen, comp, header_bytes)."""
+    b0 = payload[0]
+    lt, sf = b0 & 3, (b0 >> 2) & 3
+    if lt in (0, 1):
+        if sf in (0, 2):
+            return lt, sf, b0 >> 3, 0, 1
+        if sf == 1:
+            v = int.from_bytes(payload[0:2], "little")
+            return lt, sf, v >> 4, 0, 2
+        v = int.from_bytes(payload[0:3], "little")
+        return lt, sf, v >> 4, 0, 3
+    if sf in (0, 1):
+        v = int.from_bytes(payload[0:3], "little")
+        return lt, sf, (v >> 4) & 0x3FF, (v >> 14) & 0x3FF, 3
+    if sf == 2:
+        v = int.from_bytes(payload[0:4], "little")
+        return lt, sf, (v >> 4) & 0x3FFF, (v >> 18) & 0x3FFF, 4
+    v = int.from_bytes(payload[0:5], "little")
+    return lt, sf, (v >> 4) & 0x3FFFF, (v >> 22) & 0x3FFFF, 5
+
+
+def scan_eligibility(frames, single_block_only: bool = False) -> dict:
+    """Cheap header-only partition probe: frame_idx -> host-route reason
+    for frames outside the device envelope, without running ``plan_batch``
+    (which host-decodes fallback sections).  Examines only the frame
+    header, the first block header and the literal-section type byte, and
+    mirrors the routing conditions of ``plan_batch``.  single_block_only
+    also routes multi-block frames to the host."""
+    routed = {}
+    for fi, frame in enumerate(frames):
+        try:
+            hdr = parse_frame_header(np.frombuffer(frame, np.uint8))
+            if hdr.frame_content_size is None or hdr.frame_content_size < 0:
+                routed[fi] = "no content size"
+                continue
+            if hdr.dict_id:
+                routed[fi] = "dictionary required"
+                continue
+            content = int(hdr.frame_content_size)
+            if content > MB_CONTENT_CAP or (
+                    content > (1 << 17)
+                    and hdr.window_size > MB_WINDOW_CAP):
+                routed[fi] = "content/window beyond device caps"
+                continue
+            if single_block_only and content > (1 << 17):
+                routed[fi] = "multi-block (host preferred)"
+                continue
+            p = hdr.header_size
+            bh = int.from_bytes(frame[p:p + 3], "little")
+            last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
+            if not last:
+                if single_block_only:
+                    routed[fi] = "multi-block (host preferred)"
+                continue  # multi-block: device-planned (dependent rounds)
+            body_len = bsize if btype != 1 else 1
+            tail = 4 if hdr.has_checksum else 0
+            if p + 3 + body_len + tail > len(frame):
+                routed[fi] = "corrupt: truncated block"
+                continue
+            if btype in (0, 1):
+                if bsize != content:
+                    routed[fi] = "corrupt: block size"
+                continue
+            payload = bytes(frame[p + 3:p + 3 + min(bsize, 5)])
+            lt, sf, regen, comp, lh = _parse_lit_header(payload)
+            if lt == 3:
+                routed[fi] = "treeless literals, no dict table"
+            elif regen > content or lh + (comp if lt >= 2 else 0) > bsize:
+                routed[fi] = "corrupt: literal section bounds"
+        except Exception as e:  # defensive routing, as in the reference
+            routed[fi] = f"plan error: {e}"
+    return routed
+
+
+class _NativeOps:
+    """Packed device operands, filled by the native planner (ZtDPlaneCtx).
+
+    Buffers are numpy arrays in LANE-MAJOR layout (one contiguous row per
+    lane) so the C planner packs with sequential memcpys; ``huf_ops`` /
+    ``fse_ops`` slice lane windows for ops.device_huf.decode_lanemajor /
+    ops.device_fse.decode_lanemajor.  ``fence`` is a ``torch.cuda.Event``
+    recorded after the batch's uploads (None on the CPU): once it has
+    completed, the buffers may be rewritten (pool recycling)."""
+
+    LANES = 1024
+    HUF_MAXW = dh.MAX_W
+    FSE_MAXW = df.MAX_W
+    S_CAP = _S_BUCKETS[-1]
+
+    def __init__(self, lib, n_frames: int, total_in: int):
+        self.lib = lib
+        self.ctx = native.DPlaneCtx()
+        self.fence = None
+        huf_cap, fse_cap, pool_cap = self._needs(n_frames, total_in)
+        self._alloc_huf(huf_cap)
+        self._alloc_fse(fse_cap)
+        self._alloc_pool(pool_cap)
+        self.ctx.s_cap = self.S_CAP
+        self.ctx.huf_maxw = self.HUF_MAXW
+        self.ctx.fse_maxw = self.FSE_MAXW
+
+    def _needs(self, n_frames: int, total_in: int):
+        """(Huffman lanes, FSE lanes, pool bytes) a batch may need."""
+        return (-(-max(4 * n_frames, 4) // self.LANES) * self.LANES,
+                -(-max(n_frames, 1) // self.LANES) * self.LANES,
+                total_in + (1 << 17) + 64)
+
+    def reset(self, n_frames: int, total_in: int):
+        """Rearm a pooled ctx for a new batch.  Stale row contents are
+        harmless (padding lanes are zeroed at ops-build time; table tails
+        beyond 2^log are never state-selected; pool spans are fully
+        overwritten), so no buffer is cleared: that saves the first-touch
+        page faults of fresh buffers on every batch."""
+        c = self.ctx
+        for k in ("pool_off", "n_huf", "n_fse", "huf_wmax", "fse_wmax",
+                  "max_seq", "max_out"):
+            setattr(c, k, 0)
+        self.fence = None
+        huf_need, fse_need, pool_need = self._needs(n_frames, total_in)
+        if huf_need > c.huf_cap:
+            self._alloc_huf(huf_need)
+        if fse_need > c.fse_cap:
+            self._alloc_fse(fse_need)
+        if pool_need > c.pool_cap:
+            self._alloc_pool(pool_need)
+
+    # -- allocation and growth (the pointers live in the ctx struct) --
+
+    @staticmethod
+    def _i32p(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+    def _alloc_rows(self, prefix: str, cap: int, shapes: dict, old):
+        arrs = {k: np.zeros((cap, *s), np.int32) for k, s in shapes.items()}
+        if old is not None:
+            oc = old[f"{prefix}_words"].shape[0]
+            for k, a in arrs.items():
+                a[:oc] = old[k]
+        setattr(self.ctx, f"{prefix}_cap", cap)
+        setattr(self.ctx, f"{prefix}_words", arrs[f"{prefix}_words"].ctypes
+                .data_as(ctypes.POINTER(ctypes.c_uint32)))
+        for k, a in arrs.items():
+            if k != f"{prefix}_words":
+                setattr(self.ctx, k, self._i32p(a))
+        return arrs
+
+    def _alloc_huf(self, cap, old=None):
+        self._huf = self._alloc_rows("huf", cap, dict(
+            huf_words=(self.HUF_MAXW,), huf_limits=(16,), huf_bases=(16,),
+            huf_offs=(16,), huf_shifts=(16,), huf_planes=(64,), huf_pos=(),
+            huf_nsym=(), huf_wlen=()), old)
+
+    def _alloc_fse(self, cap, old=None):
+        self._fse = self._alloc_rows("fse", cap, dict(
+            fse_words=(self.FSE_MAXW,), fse_ll=(df.NSTATES,),
+            fse_of=(df.NSTATES_OF,), fse_ml=(df.NSTATES,), fse_logs=(3,),
+            fse_pos=(), fse_rep=(3,), fse_nseq=(), fse_wlen=(),
+            fse_st=(8,)), old)
+
+    def _alloc_pool(self, cap, old=None):
+        pool = np.zeros(cap, np.uint8)
+        if old is not None:
+            pool[:len(old)] = old
+        self._pool = pool
+        self.ctx.pool_cap = cap
+        self.ctx.raw_pool = pool.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+    def _ensure(self, pool_need=1 << 17, huf_need=4, fse_need=1):
+        c = self.ctx
+        if c.pool_off + pool_need + 8 > c.pool_cap:
+            self._alloc_pool(max(c.pool_cap * 2, c.pool_off + pool_need + 64),
+                             old=self._pool[:c.pool_off])
+        if c.n_huf + huf_need > c.huf_cap:
+            self._alloc_huf(-(-max(c.huf_cap * 2, c.n_huf + huf_need)
+                              // self.LANES) * self.LANES, old=self._huf)
+        if c.n_fse + fse_need > c.fse_cap:
+            self._alloc_fse(-(-max(c.fse_cap * 2, c.n_fse + fse_need)
+                              // self.LANES) * self.LANES, old=self._fse)
+
+    # -- entry points --
+
+    @staticmethod
+    def _u8p(b: bytes):
+        v = np.frombuffer(b, np.uint8)
+        return v.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), v
+
+    def plan_all(self, frames):
+        """Plan every frame in one native call.  Returns (rcs [N] int32,
+        metas [N, 12] int32)."""
+        n = len(frames)
+        buf = b"".join(map(bytes, frames))
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(np.fromiter(map(len, frames), np.int64, n), out=offs[1:])
+        self._ensure(pool_need=len(buf), huf_need=4 * n, fse_need=n)
+        metas = np.zeros((n, 12), np.int32)
+        rcs = np.zeros(n, np.int32)
+        bufv = np.frombuffer(buf, np.uint8)
+        self.lib.zt_dplane_batch(
+            ctypes.byref(self.ctx),
+            bufv.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            n, self._i32p(metas), self._i32p(rcs))
+        return rcs, metas
+
+    def pack_huf(self, payload: bytes, weights, n_out: int) -> int:
+        self._ensure(pool_need=0, huf_need=1, fse_need=0)
+        w = np.ascontiguousarray(np.asarray(weights, np.uint8))
+        total = int(((np.uint64(1) << w[w > 0].astype(np.uint64)).sum())
+                    >> np.uint64(1))
+        tlog = max(int(total).bit_length() - 1 if total else 1, 1)
+        p, ref = self._u8p(payload)
+        return int(self.lib.zt_dplane_pack_huf(
+            ctypes.byref(self.ctx), p, len(ref),
+            w.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(w), tlog,
+            n_out))
 
     def pack_fse(self, payload: bytes, dts, rep, nseq: int) -> int:
         self._ensure(pool_need=0, huf_need=0, fse_need=1)
@@ -65,13 +358,30 @@ class _NativeOps(_RefNativeOps):
             df.pack_table(of_dt)[:df.NSTATES_OF].astype(np.int32))
         ml = np.ascontiguousarray(df.pack_table(ml_dt).astype(np.int32))
         r3 = np.asarray(list(rep), np.int32)
-        ct = self._ctypes
         p, ref = self._u8p(payload)
         return int(self.lib.zt_dplane_pack_fse(
-            ct.byref(self.ctx), p, len(ref),
+            ctypes.byref(self.ctx), p, len(ref),
             self._i32p(ll), self._i32p(of), self._i32p(ml),
             int(ll_dt.table_log), int(of_dt.table_log),
             int(ml_dt.table_log), self._i32p(r3), nseq))
+
+    def pool_add(self, b: bytes) -> int:
+        self._ensure(pool_need=len(b), huf_need=0, fse_need=0)
+        base = int(self.ctx.pool_off)
+        self._pool[base:base + len(b)] = np.frombuffer(b, np.uint8)
+        self.ctx.pool_off = base + len(b)
+        return base
+
+    @property
+    def n_huf(self):
+        return int(self.ctx.n_huf)
+
+    @property
+    def n_fse(self):
+        return int(self.ctx.n_fse)
+
+    def pool_bytes(self) -> bytes:
+        return self._pool[:int(self.ctx.pool_off)].tobytes()
 
     def huf_ops(self, i: int) -> dict:
         """Lane-major numpy operand window [i, i+NL) for
@@ -116,12 +426,9 @@ _CTX_LOCK = threading.Lock()
 def _native_ops_for(frames) -> _NativeOps:
     """A _NativeOps for this batch, recycled from the pool when one is
     free.  A pooled ctx is rearmed only after its fence (recorded after the
-    previous batch's uploads from its buffers) has completed."""
+    previous batch's uploads from its buffers) has completed.  Raises
+    when the native engine can be neither loaded nor built."""
     lib = native.get_lib()
-    if lib is None or not hasattr(lib, "zt_dplane_frame"):
-        raise RuntimeError(
-            "the native planner (native/libzstdtpu_core.so) is unavailable; "
-            "the device decode plane needs it")
     total = sum(len(f) for f in frames)
     with _CTX_LOCK:
         nb = _CTX_POOL.pop() if _CTX_POOL else None
@@ -291,8 +598,7 @@ def plan_batch(frames, ddict=None) -> DevicePlan:
     if ddict is not None:
         raise NotImplementedError(
             "dictionary frames are not ported to the torch device plane yet")
-    plan = DevicePlan(n_frames=len(frames))
-    plan.nb = _native_ops_for(frames)
+    plan = DevicePlan(nb=_native_ops_for(frames), n_frames=len(frames))
     rcs, metas = plan.nb.plan_all(frames)
     for fi, frame in enumerate(frames):
         rc, m = int(rcs[fi]), metas[fi]
@@ -482,6 +788,18 @@ def _meta_row(b):
     return (b.lit_kind, b.pool_base, b.pool_len, b.huf_lane0, b.huf_seg,
             b.seq_kind, b.fse_lane, b.host_row, b.n_seq, b.lit_regen,
             b.out_len)
+
+
+def _mb_groups(mb_frames, max_group: int = 16):
+    """Group multi-block frames so each dependent-round batch shares one
+    window / content bucket and bounded memory."""
+    by_key: dict = {}
+    for f in mb_frames:
+        key = (_bucket(f["window"], _MBW_BUCKETS),
+               _bucket(f["content"], _MBC_BUCKETS))
+        by_key.setdefault(key, []).append(f)
+    return [fs[i:i + max_group] for fs in by_key.values()
+            for i in range(0, len(fs), max_group)]
 
 
 def decode_batch_device(frames, device, materialize: bool = False,

@@ -10,7 +10,7 @@ Frame rows stay in device memory unless ``materialize`` asks for bytes.
 
 Envelope, as the reference: records up to 128 KB become single-segment
 single-block frames, padded into the 4/16/64/128 KB buckets; larger
-records go to the host tier's ``compress(rec, 1)`` and are reported in the
+records go to the port's host ``compress(rec, 1)`` and are reported in the
 stats.  Every frame is standard zstd, byte-identical to the reference's.
 """
 
@@ -19,10 +19,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zstdsharp_tpu.encode.device_pipeline import LANES, _bucket
-from zstdsharp_tpu.encode.frame import compress
-
 from ..ops.device_encode import encode_frames_device, seq_budget, word_budget
+from .frame import compress
+
+# records per device chunk, and the record-size buckets (the reference's)
+LANES = 32
+_N_BUCKETS = (1 << 12, 1 << 14, 1 << 16, 1 << 17)
+
+
+def _bucket(n: int) -> int:
+    """The smallest bucket that holds n bytes, or -1 (host route)."""
+    for b in _N_BUCKETS:
+        if n <= b:
+            return b
+    return -1
 
 
 def compress_batch_device(records, device, materialize: bool = False,

@@ -78,9 +78,8 @@ def _sync(mesh) -> None:
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     """Run the data-parallel codec over an n-entry mesh and print one line
     per step; every round trip is checked byte for byte."""
-    from zstdsharp_tpu.decode.frame import decompress
-    from zstdsharp_tpu.encode.frame import compress
-
+    from .decode.frame import decompress
+    from .encode.frame import compress
     from .parallel.pipeline import (compress_data_parallel,
                                     compress_records_device,
                                     decompress_data_parallel, make_mesh,

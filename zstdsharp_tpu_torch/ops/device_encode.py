@@ -24,10 +24,9 @@ JAX's x64 mode off (see ``ops.common``): u32 quantities live in int64
 tensors.  Nothing here synchronises with the host except step 2.
 
 The host builders (``_tables``, ``_symbol_maps``, ``_build_lit_tables``,
-``_build_seq_tables``, ``seq_budget``, ``word_budget``) and the constants
-are copied from the reference, because importing ``zstdsharp_tpu.ops``
-imports JAX; they call the JAX-free host tiers ``zstdsharp_tpu.entropy``
-and ``zstdsharp_tpu.constants``.
+``_build_seq_tables``, ``seq_budget``, ``word_budget``) are copied from
+the reference; they call the port's own host tier (``..entropy``,
+``..constants``).
 """
 
 from __future__ import annotations
@@ -37,8 +36,8 @@ import time
 import numpy as np
 import torch
 
-from zstdsharp_tpu import constants as C
-from zstdsharp_tpu.entropy import fse
+from .. import constants as C
+from ..entropy import fse, huffman
 
 from .common import U32, highbit, pack_bits_device
 from .histogram import histogram_u8
@@ -301,8 +300,6 @@ def _build_lit_tables(lit_hist: np.ndarray, lit_count: np.ndarray):
     histograms (HUF_buildCTable/HUF_writeCTable role).  Returns
     (codes [B,256] u32, nbits [B,256] u32, desc [B,DESC_MAX] u8,
     desc_len [B] i32, huf_ok [B] bool)."""
-    from zstdsharp_tpu.entropy import huffman
-
     B = lit_hist.shape[0]
     codes = np.zeros((B, 256), np.uint32)
     nbits = np.zeros((B, 256), np.uint32)

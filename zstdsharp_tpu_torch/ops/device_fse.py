@@ -172,6 +172,8 @@ def decode_lanemajor(ops: dict):
     if dev.type == "cpu":
         return decode_plain(*args, t_len)
     stream_handle(dev)  # raises off CUDA
+    # the kernel stages rows with 16-byte copies: operands start aligned
+    args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
     outs = [torch.empty((nl, t_len), dtype=torch.int32, device=dev)
             for _ in range(3)]
     a = [x.data_ptr() for x in args]

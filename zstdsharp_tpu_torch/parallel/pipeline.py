@@ -31,18 +31,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from zstdsharp_tpu import constants as C
-from zstdsharp_tpu import native
-from zstdsharp_tpu.decode.device_pipeline import scan_eligibility
-from zstdsharp_tpu.decode.frame import (decompress, find_frame_compressed_size,
-                                        parse_frame_header)
-from zstdsharp_tpu.encode.frame import _block_header, _write_frame_header
-from zstdsharp_tpu.encode.frame import compress as host_compress
-from zstdsharp_tpu.utils.xxhash import content_checksum
-
-from ..decode.device_pipeline import decode_batch_device
+from .. import constants as C
+from .. import native
+from ..decode.device_pipeline import decode_batch_device, scan_eligibility
+from ..decode.frame import (decompress, find_frame_compressed_size,
+                            parse_frame_header)
 from ..encode.device_pipeline import compress_batch_device
+from ..encode.frame import _block_header, _write_frame_header
+from ..encode.frame import compress as host_compress
 from ..ops.matcher import candidate_stage
+from ..utils.xxhash import content_checksum
 
 BLOCK = C.ZSTD_BLOCKSIZE_MAX  # 128 KiB
 # Positions per candidate_stage call: its int64 intermediates then take
