@@ -21,7 +21,10 @@ Phases, each printed on its own line:
      the operands the native planner packs for the decode workload, with
      its bound (``kernel_bench.huf_work``: bytes each input read once and
      each output written once over 3.35 TB/s, or operations over the
-     core rate, whichever is larger);
+     core rate, whichever is larger), timed through the wrapper (``ms``,
+     as for every kernel) and through the raw launcher (``launcher_ms``),
+     and its serial floor: the window's longest lane alone, checked and
+     timed through the raw launcher (``serial_floor_ms``);
   3. the same for the FSE kernel (``kernel_bench.fse_work``);
   4. decode end to end: decoded bytes equal the inputs, none of the 256
      records is routed to the host, both decode kernels were launched;
@@ -171,11 +174,15 @@ def _frame_bytes(n, outs, lens, host):
 
 def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
     """Kernel vs plain version on the card at the workload's shapes.
-    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms);
-    `work` gives the call's (bytes, operations) from its operands."""
+    Returns the kernel's JSON fields; `work` gives the call's (bytes,
+    operations) from its operands.  ms times the wrapper, as for every
+    kernel; launcher_ms and serial_floor_ms time the raw launcher (the
+    wrapper's host work left out) on the window and on its longest lane
+    alone."""
     import torch
 
-    from zstdsharp_tpu_torch.kernel_bench import bound
+    from zstdsharp_tpu_torch import _build
+    from zstdsharp_tpu_torch.kernel_bench import bound, launcher, one_lane
 
     args = [ops[k] for k in mod._OPERANDS]
     got = outputs_of(mod.decode_lanemajor(ops))
@@ -191,14 +198,31 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
     _check(all(bool((g.masked_select(~live) == 0).all()) for g in got),
            f"{name} kernel zero-fills past each lane's count")
     ms = _gpu_ms(lambda: mod.decode_lanemajor(ops), 20)
+    run, _ = launcher(_build.load(), name, ops)
+    launcher_ms = _gpu_ms(run, 20)
+    longest = int(torch.argmax(ops[mask_key]))
+    lane = one_lane(ops, longest, mask_key)
+    run1, outs1 = launcher(_build.load(), name, lane)
+    run1()
+    want1 = outputs_of(mod.decode_plain(*(lane[k] for k in mod._OPERANDS),
+                                        outs1[0].shape[1]))
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(outs1, want1)),
+           f"{name} kernel equals its plain version on the longest lane")
+    floor_ms = _gpu_ms(run1, 20)
+    n_max = int(ops[mask_key][longest])
     plain_ms = _gpu_ms(lambda: mod.decode_plain(*args, t_len), 1)
     bound_ms, bound_by = bound(*work(ops, t_len))
     print(f"phase {name}: kernel == plain over {int(live.sum())} entries of "
           f"{len(got)} x {tuple(got[0].shape)} (max_abs_err {err}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes "
-          f"it, on {card}")
-    return err, ms, plain_ms, bound_ms, bound_by, None
+          f"kernel {ms:.4f} ms through the wrapper ({launcher_ms:.4f} ms "
+          f"through the raw launcher), plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}); serial floor: the longest lane alone ({n_max} "
+          f"items) {floor_ms:.4f} ms, {floor_ms * 1e6 / max(n_max, 1):.1f} "
+          f"ns each; no single PyTorch call computes it, on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launcher_ms": launcher_ms, "serial_floor_ms": floor_ms}
 
 
 def _kernel_wrappers():
@@ -237,8 +261,8 @@ def _hist_phase(lit_sorted, mask, odd, card):
     """Histogram kernel vs plain version on the card: the literal rows with
     their prefix masks, and an unmasked odd-length vector.  The yardstick
     is ``torch.bincount`` on the same rows with the mask as weights (the
-    port never calls it).  Returns (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, library_ms) at the literal rows."""
+    port never calls it).  Returns the kernel's JSON fields at the literal
+    rows."""
     import torch
 
     from zstdsharp_tpu_torch.kernel_bench import bound, hist_work
@@ -277,12 +301,13 @@ def _hist_phase(lit_sorted, mask, odd, card):
           f"vector kernel {odd_ms:.4f} ms, plain {odd_plain:.4f} ms, "
           f"torch.bincount {odd_lib:.4f} ms (CUDA events, wrapper host work "
           f"included) on {card}")
-    return err, ms, plain_ms, bound_ms, bound_by, lib_ms
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def _encode_phases(data, dev, card):
-    """Phases 6-8.  Returns ((max_abs_err, ms, plain_ms) of the histogram
-    kernel, its launches in the encode path)."""
+    """Phases 6-8.  Returns (the histogram kernel's JSON fields, its
+    launches in the encode path)."""
     import numpy as np
     import torch
 
@@ -702,17 +727,14 @@ def main() -> int:
     launches = {k: launches[k] + dp_launches[k] for k in launches}
     _stream_profile(big, dev, card)
 
-    kernels = []
-    for name, (err, ms, plain_ms, bound_ms, bound_by, lib_ms), src, rep in (
-            ("huf_decode", huf, "huf_decode.cu", "device_huf.py:238"),
-            ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
-            ("histogram", hist, "histogram.cu", "histogram.py:36")):
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"zstdsharp_tpu_torch/csrc/{src}",
-                        "replaces": f"zstdsharp_tpu/ops/{rep}",
-                        "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms})
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"zstdsharp_tpu_torch/csrc/{src}",
+                "replaces": f"zstdsharp_tpu/ops/{rep}",
+                "launches": launches[name], **fields}
+               for name, fields, src, rep in (
+                   ("huf_decode", huf, "huf_decode.cu", "device_huf.py:238"),
+                   ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
+                   ("histogram", hist, "histogram.cu", "histogram.py:36"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

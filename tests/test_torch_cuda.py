@@ -100,9 +100,21 @@ def test_fse_kernel_equals_plain(planned):
         assert torch.equal(g, w)
 
 
-def _fse_window(frames, cuda):
+def _corpus(n: int) -> bytes:
+    """The repository's data generator, bench.make_corpus."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from bench import make_corpus
+
+    return make_corpus(n)
+
+
+def _window(frames, cuda, which="fse"):
+    """The planner's first `which` ("fse" or "huf") operand window."""
     plan = dp.plan_batch(frames)
-    ops = dp.ops_to_device(plan.nb.fse_ops(0), cuda)
+    ops = dp.ops_to_device(getattr(plan.nb, f"{which}_ops")(0), cuda)
     dp._release_ops(plan.nb, None)
     return ops
 
@@ -128,15 +140,9 @@ def _fse_equal_plain(ops):
 def test_fse_kernel_planner_windows(cuda, wb, rec_kb):
     """The planner's window of bench-corpus records at level 9: 24 KB
     records make the main path's Wb 1024 bucket, 48 KB ones Wb 2048."""
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    from bench import make_corpus
-
     n = rec_kb << 10
-    data = make_corpus(48 * n)
-    ops = _fse_window([compress(data[i:i + n], 9)
+    data = _corpus(48 * n)
+    ops = _window([compress(data[i:i + n], 9)
                        for i in range(0, len(data), n)], cuda)
     assert ops["words"].shape[1] == wb
     assert int(ops["nseq"].max()) > 1000
@@ -147,7 +153,7 @@ def test_fse_kernel_idle_and_padding_lanes(cuda):
     """Padding lanes (the window rounds 37 lanes up) and lanes set to
     nseq = 0 decode nothing and are all zeros."""
     frames = [compress(x, 9) for x in _records(37, 6_000, 17)]
-    ops = _fse_window(frames, cuda)
+    ops = _window(frames, cuda)
     assert ops["words"].shape[0] > 37 and int(ops["nseq"][37:].max()) == 0
     ops["nseq"][::5] = 0
     got = _fse_equal_plain(ops)
@@ -155,7 +161,7 @@ def test_fse_kernel_idle_and_padding_lanes(cuda):
 
 
 def test_fse_kernel_early_end_frame(cuda):
-    ops = _fse_window([EARLY_END_FRAME], cuda)
+    ops = _window([EARLY_END_FRAME], cuda)
     assert int(ops["nseq"][0]) == 129
     _fse_equal_plain(ops)
 
@@ -182,6 +188,103 @@ def test_fse_kernel_random_window(cuda, nl, wb, seed):
            "of": rand(nl, df.NSTATES_OF), "ml": rand(nl, df.NSTATES),
            "st": st, "nseq": rand(nl, lo=-3, hi=400), "t_max": 400}
     _fse_equal_plain(ops)
+
+
+def _huf_equal_plain(ops):
+    """Launch the Huffman kernel once on `ops`, synchronise, hold it
+    against the plain version; the rows are zero past each lane's count."""
+    before = dh.decode_lanemajor.launches
+    got = dh.decode_lanemajor(ops)
+    torch.cuda.synchronize()
+    assert dh.decode_lanemajor.launches == before + 1
+    t_len = got.shape[1]
+    assert torch.equal(got, dh.decode_plain(
+        *(ops[k] for k in dh._OPERANDS), t_len))
+    n = ops["nsym"].long().clamp(0, t_len)
+    dead = torch.arange(t_len, device=n.device)[None, :] >= n[:, None]
+    assert bool((got.masked_select(dead) == 0).all())
+    return got
+
+
+@pytest.mark.parametrize("wb,t_len,rec_kb", [(256, 1024, 24), (768, 4096, 48)])
+def test_huf_kernel_planner_windows(cuda, wb, t_len, rec_kb):
+    """The planner's window of 256 bench-corpus records at level 9: 24 KB
+    records make the main path's [1024, Wb 256, T 1024] window, 48 KB ones
+    a larger Wb and T bucket."""
+    n = rec_kb << 10
+    data = _corpus(256 * n)
+    ops = _window([compress(data[i:i + n], 9)
+                   for i in range(0, len(data), n)], cuda, "huf")
+    assert ops["words"].shape == (1024, wb)
+    assert int(ops["nsym"].max()) > 500
+    assert _huf_equal_plain(ops).shape[1] == t_len
+
+
+def test_huf_kernel_idle_and_padding_lanes(cuda):
+    """Padding lanes (the window rounds 68 streams up to 128 lanes) and
+    lanes set to nsym = 0 decode nothing and are all zeros."""
+    data = _corpus(37 * 6000)
+    frames = [compress(data[i:i + 6000], 9) for i in range(0, len(data), 6000)]
+    plan = dp.plan_batch(frames)
+    real = plan.nb.n_huf
+    ops = dp.ops_to_device(plan.nb.huf_ops(0), cuda)
+    dp._release_ops(plan.nb, None)
+    assert ops["words"].shape[0] > real and int(ops["nsym"][real:].max()) == 0
+    ops["nsym"][::5] = 0
+    got = _huf_equal_plain(ops)
+    assert not bool(got[::5].any())
+
+
+# At Wb 10956 a lane's block takes just under 48 KB of dynamic shared
+# memory in csrc/huf_decode.cu (layout(10956).total = 49,136 B), over it
+# with the static part: the launch must opt in.
+@pytest.mark.parametrize("nl,wb,seed", [(1, 64, 1), (33, 512, 2),
+                                        (300, 2048, 3), (1024, 256, 4),
+                                        (5, 10956, 5)])
+def test_huf_kernel_random_window(cuda, nl, wb, seed):
+    """Random operands from a seed: the plain version's symbols, and no
+    illegal address (the synchronise would raise)."""
+    _huf_equal_plain(_huf_random_ops(np.random.default_rng(seed), nl, wb,
+                                     cuda))
+
+
+def _huf_random_ops(rng, nl, wb, cuda, word_offset=0):
+    """Random Huffman operands.  Even lanes look like a planner's (sorted
+    11-bit limits, shifts in [0, 10], a start inside their words or up to
+    two words past them); odd lanes take random int32 everywhere, so their
+    consumed counts 11 - shift are arbitrary and pos moves both ways.  The
+    words start `word_offset` int32 into their buffer."""
+
+    def rand(*shape, lo=-2**31, hi=2**31):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).to(cuda)
+
+    ops = {k: rand(nl, m) for k, m in (("limits", 16), ("bases", 16),
+                                       ("offs", 16), ("shifts", 16),
+                                       ("planes", 64))}
+    ops["words"] = rand(nl * wb + word_offset)[word_offset:].view(nl, wb)
+    ops["pos"], ops["nsym"], ops["t_max"] = rand(nl), rand(nl, lo=-3,
+                                                          hi=400), 400
+    ev = len(range(0, nl, 2))
+    ops["limits"][::2] = rand(ev, 16, lo=0, hi=2049).sort(dim=1).values
+    ops["bases"][::2] = rand(ev, 16, lo=0, hi=256)
+    ops["offs"][::2] = rand(ev, 16, lo=0, hi=2048)
+    ops["shifts"][::2] = rand(ev, 16, lo=0, hi=11)
+    ops["pos"][::2] = rand(ev, lo=-64, hi=32 * wb + 64)
+    return ops
+
+
+# The kernel stages a lane's words in 16-byte copies only when every row
+# starts 16-byte aligned (Wb a multiple of 4, the words' pointer aligned);
+# else in 4-byte copies with the zero pads right after the live words.
+@pytest.mark.parametrize("wb,word_offset", [(37, 0), (256, 1), (130, 3)],
+                         ids=["wb37", "misaligned", "wb130-misaligned"])
+def test_huf_kernel_word_staging(cuda, wb, word_offset):
+    ops = _huf_random_ops(np.random.default_rng(wb), 64, wb, cuda,
+                          word_offset)
+    aligned = ops["words"].data_ptr() % 16 == 0 and wb % 4 == 0
+    assert not aligned and ops["words"].is_contiguous()
+    _huf_equal_plain(ops)
 
 
 def test_corrupt_operands_do_not_fault(planned, cuda):

@@ -3,9 +3,10 @@
 The port keeps its own copy of the host code it reaches (constants, frame
 parsing and writing, the native-routed ``compress`` and ``decompress``,
 the FSE and Huffman table builders and writers, the block decoders the
-device planner's host route uses, ``scan_eligibility``).  Every case feeds
-the same inputs, made from numpy seeds, to the port and to
-``zstdsharp_tpu`` and asserts equal bytes, fields or arrays.
+device planner's host route uses, ``scan_eligibility``, the dictionary
+parser).  Every case feeds the same inputs, made from numpy seeds, to the
+port and to ``zstdsharp_tpu`` and asserts equal bytes, fields, arrays or
+error codes.
 """
 
 import dataclasses
@@ -15,15 +16,17 @@ import pytest
 import zstandard
 
 from zstdsharp_tpu import constants as RC
+from zstdsharp_tpu import dictionary as rdict
 from zstdsharp_tpu.decode import block as rblock
 from zstdsharp_tpu.decode import device_pipeline as rdp
 from zstdsharp_tpu.decode import frame as rframe
 from zstdsharp_tpu.encode import frame as renc
 from zstdsharp_tpu.entropy import fse as rfse
 from zstdsharp_tpu.entropy import huffman as rhuf
+from zstdsharp_tpu.errors import ZstdError as RZstdError
 from zstdsharp_tpu.utils.xxhash import content_checksum as r_checksum
 from zstdsharp_tpu_torch import constants as C
-from zstdsharp_tpu_torch import native
+from zstdsharp_tpu_torch import dictionary, native
 from zstdsharp_tpu_torch.decode import block
 from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode import frame
@@ -413,3 +416,96 @@ def test_short_sequence_sections_equal_reference(nb_seq):
             assert list(ent.rep) == list(rent.rep)
             return
     pytest.fail(f"no seeded block with {nb_seq} sequences")
+
+
+# ---------------------------------------------------------------------------
+# dictionaries
+# ---------------------------------------------------------------------------
+
+
+def _trained_dict() -> bytes:
+    rng = np.random.default_rng(64)
+    words = [b"unwrap ", b"many ", b"device ", b"dict ", b"frame "]
+    samples = [b"".join(words[int(i)] for i in rng.integers(0, 5, 30))
+               for _ in range(200)]
+    return zstandard.train_dictionary(4096, samples).as_bytes()
+
+
+_DICT = _trained_dict()
+
+
+def _dict_sections(d: bytes) -> dict:
+    """Where each section of a dictionary starts and ends, by the
+    reference's readers: {name: (start, end)}."""
+    pos, out = 8, {}
+    n = rhuf.read_weights(d[pos:])[2]
+    out["huffman"] = (pos, pos + n)
+    pos += n
+    for name, max_sym, max_log in (("of", RC.MAX_OFF, RC.OF_FSE_LOG),
+                                   ("ml", RC.MAX_ML, RC.ML_FSE_LOG),
+                                   ("ll", RC.MAX_LL, RC.LL_FSE_LOG)):
+        n = rfse.read_ncount(d[pos:], max_sym, max_log)[3]
+        out[name] = (pos, pos + n)
+        pos += n
+    out["repcodes"] = (pos, pos + 12)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["trained", "raw_content", "short"])
+def test_parse_dictionary_equals_reference(kind):
+    data = {"trained": _DICT,
+            "raw_content": _data(3000, seed=65),
+            "short": b"\x37\xa4\x30\xec\x01"}[kind]
+    got, want = dictionary.parse_dictionary(data), rdict.parse_dictionary(data)
+    assert got.dict_id == want.dict_id
+    assert got.raw == want.raw == data
+    assert got.content.tobytes() == want.content.tobytes()
+    if kind != "trained":
+        assert got.dict_id == 0 and got.entropy is None is want.entropy
+        return
+    assert got.dict_id != 0
+    assert list(got.entropy.rep) == list(want.entropy.rep)
+    assert np.array_equal(got.entropy.huf.symbol, want.entropy.huf.symbol)
+    assert np.array_equal(got.entropy.huf.nb_bits, want.entropy.huf.nb_bits)
+    for t in ("of", "ml", "ll"):
+        dt, rdt = getattr(got.entropy, t), getattr(want.entropy, t)
+        assert dt.table_log == rdt.table_log
+        for f in ("symbol", "nb_bits", "new_state", "base_value",
+                  "nb_add_bits"):
+            assert np.array_equal(getattr(dt, f), getattr(rdt, f)), (t, f)
+
+
+def _broken_dicts():
+    """(name, bytes): the trained dictionary cut one byte into and halfway
+    through each section, and with a zero repcode."""
+    out = []
+    for name, (a, b) in _dict_sections(_DICT).items():
+        out += [(f"{name}_cut_start", _DICT[:a + 1]),
+                (f"{name}_cut_mid", _DICT[:(a + b) // 2])]
+    rp = _dict_sections(_DICT)["repcodes"][0]
+    out.append(("zero_repcode", _DICT[:rp + 4] + bytes(4) + _DICT[rp + 8:]))
+    return out
+
+
+_BROKEN = _broken_dicts()
+
+
+@pytest.mark.parametrize("name,data", _BROKEN, ids=[n for n, _ in _BROKEN])
+def test_load_dictionary_raises_as_reference(name, data):
+    with pytest.raises(RZstdError) as ref:
+        rframe.Decompressor().load_dictionary(data)
+    dec = frame.Decompressor()
+    with pytest.raises(ZstdError) as mine:
+        dec.load_dictionary(data)
+    assert mine.value.code.name == ref.value.code.name
+    assert int(mine.value.code) == int(ref.value.code)
+    assert dec._dict is None
+
+
+def test_load_dictionary_keeps_parsed_and_none_drops():
+    dec = frame.Decompressor()
+    dec.load_dictionary(_DICT)
+    assert isinstance(dec._dict, dictionary.ParsedDict)
+    assert dec._dict.dict_id == rdict.parse_dictionary(_DICT).dict_id
+    dec.load_dictionary(None)
+    assert dec._dict is None

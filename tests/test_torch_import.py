@@ -87,7 +87,8 @@ def test_sources_import_no_reference_package():
 def test_cpu_paths_load_no_reference_module():
     """Import every port module, then run the CPU decode plane (a
     multi-block frame and a host-routed one among the frames), the CPU
-    encode plane and the port's compress / decompress in a clean process:
+    encode plane, the port's compress / decompress and its dictionary
+    parser (``Decompressor.load_dictionary``) in a clean process:
     no module of the JAX package, and no JAX, may be loaded."""
     code = textwrap.dedent("""\
         import importlib, pkgutil, sys
@@ -117,6 +118,12 @@ def test_cpu_paths_load_no_reference_module():
         assert [decompress(f) for f in enc] == recs, "encode"
         assert estats["device_frames"] == 3, estats
         assert decompress(compress(multi, 5, checksum=True)) == multi
+        import zstandard
+        from zstdsharp_tpu_torch.decode.frame import Decompressor
+        d = zstandard.train_dictionary(2048, [text(40) for _ in range(200)])
+        dec = Decompressor()
+        dec.load_dictionary(d.as_bytes())
+        assert dec._dict.dict_id == d.dict_id(), "dictionary"
         bad = sorted(k for k in sys.modules
                      if k == "zstdsharp_tpu" or k.startswith("zstdsharp_tpu."))
         assert not bad, bad

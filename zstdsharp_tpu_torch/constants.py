@@ -18,6 +18,7 @@ import numpy as np
 ZSTD_MAGICNUMBER = 0xFD2FB528
 ZSTD_MAGIC_SKIPPABLE_START = 0x184D2A50
 ZSTD_MAGIC_SKIPPABLE_MASK = 0xFFFFFFF0
+ZSTD_MAGIC_DICTIONARY = 0xEC30A437
 
 ZSTD_FRAMEHEADERSIZE_MIN = 6
 ZSTD_BLOCKSIZELOG_MAX = 17

@@ -21,6 +21,7 @@ import numpy as np
 
 from .. import constants as C
 from .. import native
+from ..dictionary import parse_dictionary
 from ..errors import ZstdError, ZstdErrorCode, check
 from ..utils.xxhash import content_checksum
 
@@ -191,8 +192,11 @@ class Decompressor:
         self._dict = None
 
     def load_dictionary(self, dict_data: bytes | None) -> None:
-        """Keep a dictionary (raw bytes, or None to drop it)."""
-        self._dict = bytes(dict_data) if dict_data is not None else None
+        """Parse and keep a dictionary (None drops it).  A dictionary with
+        the magic and broken tables raises ZstdError here, as the
+        reference's does."""
+        self._dict = (parse_dictionary(dict_data) if dict_data is not None
+                      else None)
 
     def unwrap_many_device(self, frames: list[bytes], device):
         """Batch unwrap on `device`: entropy kernels and LZ execution run

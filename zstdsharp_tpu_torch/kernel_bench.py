@@ -1,21 +1,25 @@
 """Kernel measurements on one NVIDIA GPU, and the bounds every kernel is
 held to.
 
-    python -m zstdsharp_tpu_torch.kernel_bench [--fse-baseline FILE.cu]
+    python -m zstdsharp_tpu_torch.kernel_bench [--huf-baseline FILE.cu]
+                                               [--fse-baseline FILE.cu]
                                                [--out FILE.json]
 
-1. The FSE sequence-decode kernel (``csrc/fse_decode.cu``) at the main
-   path's operands -- the planner's FSE window of the bench's decode batch
-   (the first 6 MB of ``bench.make_corpus`` as 256 records of 24 KB at
-   level 9: [256 lanes, Wb 1024, T 4096]) -- at a Wb 2048 window (256
-   records of 48 KB at level 9) and on the main window's longest lane
-   alone (its time over its sequence count is the serial chain's latency
-   per sequence).  Each ``--fse-baseline`` names another source of the
-   same ``zt_fse_decode`` entry point (an earlier version of the kernel);
-   every source is built alone, checked against the plain version on each
-   window and timed in turns (the baselines, the kernel twice, the
-   baselines in reverse).  Prints what ``nvcc -Xptxas -v`` reports for
-   each.
+1. The two decode kernels, the Huffman literal decode
+   (``csrc/huf_decode.cu``) and the FSE sequence decode
+   (``csrc/fse_decode.cu``), each at the main path's operands -- the
+   planner's window of the bench's decode batch (the first 6 MB of
+   ``bench.make_corpus`` as 256 records of 24 KB at level 9: Huffman
+   [1024 lanes, Wb 256, T 1024], FSE [256 lanes, Wb 1024, T 4096]) -- at
+   a larger Wb bucket (256 records of 48 KB at level 9: Huffman Wb 768,
+   FSE Wb 2048) and on the main window's longest lane alone (its time
+   over its symbol or sequence count is the serial chain's latency per
+   item).  Each ``--huf-baseline`` / ``--fse-baseline`` names another
+   source of the same ``zt_huf_decode`` / ``zt_fse_decode`` entry point
+   (an earlier version of the kernel); every source is built alone,
+   checked against the plain version on each window and timed in turns
+   (the baselines, the kernel twice, the baselines in reverse).  Prints
+   what ``nvcc -Xptxas -v`` reports for each.
 2. The histogram kernel against ``torch.bincount`` (a yardstick the port
    never calls): device time per call from ``torch.profiler`` on the 4 MB
    vector of chip_smoke.py's phase 6 and on the encoder's literal rows
@@ -40,6 +44,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .ops import device_fse, device_huf
 
 ROOT = Path(__file__).resolve().parent.parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -153,8 +159,9 @@ def device_ms(fn, reps: int = 20) -> float:
 
 
 def _build_variant(src: Path, out: Path) -> tuple[ctypes.CDLL, list]:
-    """nvcc `src` alone into `out`; returns the library and the ptxas
-    lines of its log."""
+    """nvcc `src` alone into `out`; returns the library (its
+    ``zt_fse_decode`` or ``zt_huf_decode`` declared, whichever it has)
+    and the ptxas lines of its log."""
     from . import _build
 
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -165,105 +172,134 @@ def _build_variant(src: Path, out: Path) -> tuple[ctypes.CDLL, list]:
                              str(obj)]])
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.zt_fse_decode.restype = i
-    lib.zt_fse_decode.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, p]
+    for name in ("zt_fse_decode", "zt_huf_decode"):
+        if hasattr(lib, name):
+            getattr(lib, name).restype = i
+            getattr(lib, name).argtypes = [p, i, p, p, p, p, p, p, p, p, i, i,
+                                           p]
     return lib, [ln.strip() for ln in log.splitlines()
                  if "ptxas" in ln or "spill" in ln]
 
 
-def fse_window(frames, dev) -> dict:
-    """The planner's first FSE operand window of `frames`, on `dev`."""
-    from .decode import device_pipeline as dp
+def _build_all(kernel: str, others: list) -> tuple[dict, dict]:
+    """Build `others` ((name, source) pairs) and csrc/<kernel>.cu, each
+    alone: ({name: library}, {name: ptxas register/spill lines})."""
+    from . import _build
 
-    plan = dp.plan_batch(frames)
-    ops = dp.ops_to_device(plan.nb.fse_ops(0), dev)
-    dp._release_ops(plan.nb, None)
-    return ops
+    libs, ptxas = {}, {}
+    for name, src in others + [("kernel", _build.CSRC / f"{kernel}.cu")]:
+        libs[name], log = _build_variant(
+            src, ROOT / "build" / "ab" / f"lib{kernel}_{name}.so")
+        ptxas[name] = [ln for ln in log if "Used" in ln or "spill" in ln
+                       or "stack" in ln]
+        print(f"{name} ({src}) ptxas: {ptxas[name]}")
+    return libs, ptxas
 
 
-def _launcher(lib, ops: dict):
-    """A call of `lib`'s zt_fse_decode on `ops` into preallocated outputs
+def launcher(lib, kernel: str, ops: dict):
+    """A call of `lib`'s ``zt_<kernel>`` on `ops` into preallocated outputs
     (the wrapper's host work left out), and those outputs."""
-    from .ops import device_fse as df
-
+    mod, n_out = KERNELS[kernel][:2]
     nl, wb = ops["words"].shape
-    t_len = df.bucket_t(int(ops["t_max"]))
-    outs = [torch.empty(nl, t_len, dtype=torch.int32, device=ops["words"].device)
-            for _ in range(3)]
-    args = [ops[k].data_ptr() for k in df._OPERANDS]
+    t_len = mod.bucket_t(int(ops["t_max"]))
+    outs = [torch.empty(nl, t_len, dtype=torch.int32,
+                        device=ops["words"].device) for _ in range(n_out)]
+    args = [ops[k].data_ptr() for k in mod._OPERANDS]
     stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(lib, f"zt_{kernel}")
 
     def run():
-        rc = lib.zt_fse_decode(args[0], wb, *args[1:],
-                               *(o.data_ptr() for o in outs), nl, t_len,
-                               stream)
+        rc = fn(args[0], wb, *args[1:], *(o.data_ptr() for o in outs), nl,
+                t_len, stream)
         if rc:
-            raise RuntimeError(f"zt_fse_decode: cudaError_t {rc}")
+            raise RuntimeError(f"zt_{kernel}: cudaError_t {rc}")
     return run, outs
 
 
-def _one_lane(ops: dict, lane: int) -> dict:
+def one_lane(ops: dict, lane: int, count: str) -> dict:
+    """Lane `lane` of a window alone, its T bucket set by its own count
+    (`count`: "nsym" or "nseq")."""
     out = {k: (v if k == "t_max" else v[lane:lane + 1].clone())
            for k, v in ops.items()}
-    out["t_max"] = int(ops["nseq"][lane])
+    out["t_max"] = int(ops[count][lane])
     return out
 
 
-def fse_ab(data: bytes, dev, others: list) -> dict:
-    """The FSE kernel of csrc/ and `others` ((name, source) pairs of the
-    same entry point), each built alone, checked against the plain version
-    and timed in turns: the others in order, the kernel twice, the others
-    in reverse."""
-    from . import _build
-    from .encode.frame import compress
-    from .ops import device_fse as df
+# kernel -> (its wrapper module, outputs, planner window, count operand,
+# what it counts, its work)
+KERNELS = {
+    "huf_decode": (device_huf, 1, "huf_ops", "nsym", "symbol", huf_work),
+    "fse_decode": (device_fse, 3, "fse_ops", "nseq", "sequence", fse_work),
+}
 
-    libs = {}
-    res = {"windows": {}, "ptxas": {}}
-    for name, src in others + [("kernel", _build.CSRC / "fse_decode.cu")]:
-        libs[name], log = _build_variant(
-            src, ROOT / "build" / "ab" / f"libfse_{name}.so")
-        res["ptxas"][name] = [ln for ln in log if "Used" in ln
-                              or "spill" in ln or "stack" in ln]
-        print(f"{name} ({src}) ptxas: {res['ptxas'][name]}")
+
+def kernel_ab(kernel: str, windows: dict, others: list) -> dict:
+    """csrc/<kernel>.cu and `others` ((name, source) pairs of the same
+    entry point, e.g. an earlier version), each built alone, checked
+    against the plain version on each of `windows` ({name: operands}) and
+    timed in turns: the others in order, the kernel twice, the others in
+    reverse.  For each the longest lane's time per item follows from the
+    ``longest_lane`` window."""
+    mod, _, _, count, unit, work = KERNELS[kernel]
+    libs, ptxas = _build_all(kernel, others)
+    res = {"windows": {}, "ptxas": ptxas}
     order = [n for n, _ in others]
     turns = order + ["kernel", "kernel"] + order[::-1]
-
-    main = fse_window([compress(data[i:i + REC_SIZE], 9)
-                       for i in range(0, N_RECORDS * REC_SIZE, REC_SIZE)], dev)
-    w2k = fse_window([compress(data[i:i + 2 * REC_SIZE], 9)
-                      for i in range(0, N_RECORDS * 2 * REC_SIZE,
-                                     2 * REC_SIZE)], dev)
-    longest = int(torch.argmax(main["nseq"]))
-    for wname, ops in (("main", main), ("wb2048", w2k),
-                       ("longest_lane", _one_lane(main, longest))):
+    for wname, ops in windows.items():
         nl, wb = ops["words"].shape
-        t_len = df.bucket_t(int(ops["t_max"]))
-        want = df.decode_plain(*(ops[k] for k in df._OPERANDS), t_len)
-        row = {"shape": [nl, wb, t_len], "nseq_max": int(ops["nseq"].max()),
-               "sequences": int(ops["nseq"].clamp(min=0).sum())}
+        t_len = mod.bucket_t(int(ops["t_max"]))
+        want = mod.decode_plain(*(ops[k] for k in mod._OPERANDS), t_len)
+        want = want if isinstance(want, tuple) else (want,)
+        row = {"shape": [nl, wb, t_len], f"{count}_max": int(ops[count].max()),
+               f"{unit}s": int(ops[count].clamp(min=0).sum())}
         runs = {}
         for name, lib in libs.items():
-            run, outs = _launcher(lib, ops)
+            run, outs = launcher(lib, kernel, ops)
             run()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(outs, want)):
-                raise RuntimeError(f"fse {wname}: {name} differs from plain")
+                raise RuntimeError(f"{kernel} {wname}: {name} differs from "
+                                   "plain")
             runs[name] = run
         for name in turns:
             row.setdefault(f"{name}_ms", []).append(event_ms(runs[name], 20))
-        n_bytes, n_ops = fse_work(ops, t_len)
+        n_bytes, n_ops = work(ops, t_len)
         row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
         row["bytes"] = n_bytes
-        row["kernel_ns_per_sequence_of_longest"] = (
-            min(row["kernel_ms"]) * 1e6 / max(row["nseq_max"], 1))
+        for name in libs:
+            row[f"{name}_ns_per_{unit}_of_longest"] = (
+                min(row[f"{name}_ms"]) * 1e6 / max(row[f"{count}_max"], 1))
         res["windows"][wname] = row
         times = "; ".join(f"{n} ms {row[n + '_ms']}" for n in libs)
-        print(f"fse {wname} {row['shape']}: all equal plain; {times}; bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {n_bytes} B); "
-              f"longest lane {row['nseq_max']} sequences, kernel "
-              f"{row['kernel_ns_per_sequence_of_longest']:.1f} ns each")
+        per = ", ".join(f"{n} {row[f'{n}_ns_per_{unit}_of_longest']:.1f}"
+                        for n in libs)
+        print(f"{kernel} {wname} {row['shape']}: all equal plain; {times}; "
+              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {n_bytes}"
+              f" B); longest lane {row[f'{count}_max']} {unit}s, ns each: "
+              f"{per}")
     return res
+
+
+def decode_windows(data: bytes, dev) -> dict:
+    """Each decode kernel's windows: the main path's (the bench's 256 x 24
+    KB records at level 9), a larger Wb bucket (256 x 48 KB records), and
+    the main window's longest lane alone.  {kernel: {name: operands}}."""
+    from .decode import device_pipeline as dp
+    from .encode.frame import compress
+
+    plans = [dp.plan_batch([compress(data[i:i + size], 9)
+                            for i in range(0, N_RECORDS * size, size)])
+             for size in (REC_SIZE, 2 * REC_SIZE)]
+    out = {}
+    for kernel, (_, _, ops_of, count, _, _) in KERNELS.items():
+        main, big = (dp.ops_to_device(getattr(p.nb, ops_of)(0), dev)
+                     for p in plans)
+        longest = int(torch.argmax(main[count]))
+        out[kernel] = {"main": main, f"wb{big['words'].shape[1]}": big,
+                       "longest_lane": one_lane(main, longest, count)}
+    for p in plans:
+        dp._release_ops(p.nb, None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +358,11 @@ def hist_vs_bincount(data: bytes, dev) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--fse-baseline", type=Path, action="append",
-                    default=[], metavar="FILE.cu",
-                    help="another source of zt_fse_decode to build and time "
-                         "beside csrc/fse_decode.cu (repeatable)")
+    for k in ("huf", "fse"):
+        ap.add_argument(f"--{k}-baseline", type=Path, action="append",
+                        default=[], metavar="FILE.cu",
+                        help=f"another source of zt_{k}_decode to build and "
+                             f"time beside csrc/{k}_decode.cu (repeatable)")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_bench.json",
                     help="where to write the JSON result")
@@ -340,9 +377,12 @@ def main(argv=None) -> int:
     print(name)
     t0 = time.perf_counter()
     data = make_corpus(2 * N_RECORDS * REC_SIZE)
-    others = [(f.stem, f) for f in args.fse_baseline]
-    out = {"card": name, "fse": fse_ab(data, dev, others),
-           "histogram": hist_vs_bincount(data, dev)}
+    windows = decode_windows(data, dev)
+    out = {"card": name}
+    for k, files in (("huf", args.huf_baseline), ("fse", args.fse_baseline)):
+        out[k] = kernel_ab(f"{k}_decode", windows[f"{k}_decode"],
+                           [(f.stem, f) for f in files])
+    out["histogram"] = hist_vs_bincount(data, dev)
     out["seconds"] = time.perf_counter() - t0
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
