@@ -35,7 +35,10 @@ Phases, each printed on its own line:
      workload's literal rows (the first chunk's [32, 16384] with their
      prefix masks) and on an unmasked 1-D vector of odd length, timed
      beside ``torch.bincount`` on the same inputs (the mask as weights;
-     a yardstick the port never calls), with its bound;
+     a yardstick the port never calls), with its bound; ``ms`` through
+     the wrapper, ``launcher_ms`` through the raw launcher and
+     ``launch_floor_ms``, empty kernels of the same grid and cluster shape
+     (``zt_histogram_floor``), on the literal rows;
   7. encode end to end: every frame decodes byte-exact with the host tier,
      the 256 records' frames decode byte-exact through the port's decode
      plane with none routed to the host, none of the 256 records is
@@ -265,7 +268,9 @@ def _hist_phase(lit_sorted, mask, odd, card):
     rows."""
     import torch
 
-    from zstdsharp_tpu_torch.kernel_bench import bound, hist_work
+    from zstdsharp_tpu_torch import _build
+    from zstdsharp_tpu_torch.kernel_bench import (bound, hist_floor,
+                                                  hist_launcher, hist_work)
     from zstdsharp_tpu_torch.ops import histogram as hg
 
     err = 0.0
@@ -281,6 +286,14 @@ def _hist_phase(lit_sorted, mask, odd, card):
     _check(int(hg.histogram_u8(lit_sorted, mask).sum())
            == int(mask.sum()), "histogram counts every masked byte")
     ms = _gpu_ms(lambda: hg.histogram_u8(lit_sorted, mask), 20)
+    run, out, (cs, cpr) = hist_launcher(_build.load(), lit_sorted, mask)
+    run()
+    torch.cuda.synchronize()
+    _check(torch.equal(out, hg.histogram_plain(lit_sorted, mask)),
+           "the raw launcher's histogram equals the plain version")
+    launcher_ms = _gpu_ms(run, 20)
+    floor_ms = _gpu_ms(hist_floor(_build.load(), lit_sorted.shape[0], cs,
+                                  cpr), 20)
     plain_ms = _gpu_ms(lambda: hg.histogram_plain(lit_sorted, mask), 20)
     odd_ms = _gpu_ms(lambda: hg.histogram_u8(odd), 20)
     odd_plain = _gpu_ms(lambda: hg.histogram_plain(odd), 20)
@@ -296,13 +309,15 @@ def _hist_phase(lit_sorted, mask, odd, card):
     print(f"phase histogram: kernel == plain on lit_sorted "
           f"{tuple(lit_sorted.shape)} masked ({int(mask.sum())} literals) and "
           f"on {odd.shape[0]} unmasked bytes (max_abs_err {err}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
+          f"{ms:.4f} ms through the wrapper ({launcher_ms:.4f} ms through the "
+          f"raw launcher, clusters of {cs} blocks, {cpr} a row; launch floor "
+          f"{floor_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.bincount "
           f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); odd "
           f"vector kernel {odd_ms:.4f} ms, plain {odd_plain:.4f} ms, "
-          f"torch.bincount {odd_lib:.4f} ms (CUDA events, wrapper host work "
-          f"included) on {card}")
+          f"torch.bincount {odd_lib:.4f} ms (CUDA events) on {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "launcher_ms": launcher_ms, "launch_floor_ms": floor_ms}
 
 
 def _encode_phases(data, dev, card):

@@ -335,25 +335,141 @@ def test_last_sequence_reading_no_bits_on_card(cuda):
     assert stats == {"device_frames": 1, "host_frames": 0}
 
 
-@pytest.mark.parametrize("shape,masked", [((32, 16384), True),
-                                          ((32, 16384), False),
-                                          ((1_000_003,), False),
-                                          ((3, 5), True)])
-def test_histogram_kernel_equals_plain(cuda, shape, masked):
-    rng = np.random.default_rng(sum(shape))
+# case -> (shape, bytes, mask, data offset, mask offset): each tensor is
+# contiguous and starts `offset` bytes into its buffer.  "text" bytes put
+# 90 % of hits on 13 values; masks are prefix, random, or "none_kept" (rows
+# 0 and 2 fully masked).
+HIST_CASES = {
+    "rows32x16384-masked": ((32, 16384), "text", "prefix", 0, 0),
+    "rows32x16384": ((32, 16384), "text", None, 0, 0),
+    "vector1000003": ((1_000_003,), "text", None, 0, 0),
+    "rows3x5-masked": ((3, 5), "text", "prefix", 0, 0),
+    **{f"rows4x{n}-{m}": ((4, n), "text", m, 0, 0)
+       for n in (1, 17, 9000, 16383) for m in ("prefix", "random")},
+    "view-vector": ((9001,), "text", None, 1, 0),
+    "view-vector-masked": ((9001,), "text", "random", 1, 0),
+    "view-rows-masked": ((6, 9000), "text", "prefix", 3, 3),
+    "view-rows-mask-elsewhere": ((6, 9000), "text", "random", 5, 0),
+    "one-byte-rows": ((32, 16384), "one", None, 0, 0),
+    "ab-rows": ((32, 16384), "ab", None, 0, 0),
+    **{f"bucket{kb}k-masked": ((32, kb << 10), "text", "prefix", 0, 0)
+       for kb in (4, 16, 64, 128)},
+    "rows70000x64": ((70_000, 64), "text", "random", 0, 0),
+    "vector4MB+1": (((4 << 20) + 1,), "text", None, 0, 0),
+    "fully-masked-rows": ((4, 9000), "text", "none_kept", 0, 0),
+}
+
+
+def _at_offset(a: np.ndarray, cuda, offset: int) -> torch.Tensor:
+    """`a` as a contiguous tensor on the card that starts `offset` bytes
+    into its buffer (a view, like ``buf[1:]`` of an [N + 1] buffer)."""
+    flat = torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+    buf = torch.empty(flat.numel() + offset, dtype=flat.dtype, device=cuda)
+    buf[offset:] = flat.to(cuda)
+    out = buf[offset:].view(a.shape)
+    assert out.is_contiguous() and out.storage_offset() == offset
+    return out
+
+
+def _hist_operands(case: str, cuda):
+    shape, kind, mask_kind, d_off, m_off = HIST_CASES[case]
+    rng = np.random.default_rng(sum(shape) + len(case))
     text = np.frombuffer(b"etaoin shrdlu", np.uint8)
-    data = np.where(rng.random(shape) < 0.9, rng.choice(text, shape),
-                    rng.integers(0, 256, shape)).astype(np.uint8)
-    d = torch.from_numpy(data).to(cuda)
-    m = None
-    if masked:
-        count = torch.from_numpy(rng.integers(0, shape[-1] + 1, shape[:-1]))
-        m = (torch.arange(shape[-1])[None, :] < count[:, None]).to(cuda)
+    if kind == "text":
+        data = np.where(rng.random(shape) < 0.9, rng.choice(text, shape),
+                        rng.integers(0, 256, shape)).astype(np.uint8)
+    elif kind == "one":
+        data = np.full(shape, 0x20, np.uint8)
+    else:
+        data = np.resize(np.frombuffer(b"ab", np.uint8), shape)
+    mask = None
+    if mask_kind == "prefix":
+        count = rng.integers(0, shape[-1] + 1, shape[:-1])
+        mask = np.arange(shape[-1]) < count[..., None]
+    elif mask_kind == "random":
+        mask = rng.random(shape) < 0.5
+    elif mask_kind == "none_kept":
+        mask = np.zeros(shape, bool)
+        mask[1] = rng.random(shape[1]) < 0.7
+    return (_at_offset(data, cuda, d_off),
+            None if mask is None else _at_offset(mask, cuda, m_off))
+
+
+@pytest.mark.parametrize("case", list(HIST_CASES))
+def test_histogram_kernel_equals_plain(cuda, case):
+    d, m = _hist_operands(case, cuda)
+    b, n = (1, d.shape[0]) if d.dim() == 1 else tuple(d.shape)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, cpr = hg.plan(b, n, sms, m is not None)
     before = hg.histogram_u8.launches
     got = hg.histogram_u8(d, m)
     torch.cuda.synchronize()
-    assert hg.histogram_u8.launches == before + 1
+    # one launch, and the reducing kernel's when a row takes several
+    # clusters
+    assert hg.histogram_u8.launches == before + (2 if cpr > 1 else 1)
+    assert got.shape == (*d.shape[:-1], 256) and got.dtype == torch.int32
     assert torch.equal(got, hg.histogram_plain(d, m))
+    if HIST_CASES[case][2] == "none_kept":
+        assert not bool(got[0].any()) and not bool(got[2].any())
+
+
+@pytest.mark.parametrize("cs,cpr", [(1, 1), (3, 1), (8, 1), (5, 2), (2, 3),
+                                    (8, 5)])
+def test_histogram_launcher_configs(cuda, cs, cpr):
+    """Cluster sizes up to the portable 8, one cluster a row or several
+    with the reducing kernel, on rows that start at odd offsets and a mask
+    of another alignment."""
+    from zstdsharp_tpu_torch import _build
+    from zstdsharp_tpu_torch.kernel_bench import hist_launcher
+
+    d, m = _hist_operands("view-rows-mask-elsewhere", cuda)
+    run, out, used = hist_launcher(_build.load(), d, m, (cs, cpr))
+    assert used == (cs, cpr)
+    run()
+    torch.cuda.synchronize()
+    assert torch.equal(out, hg.histogram_plain(d, m))
+
+
+@pytest.mark.parametrize("cs,cpr", [(9, 1), (16, 1), (0, 1), (2, 0)])
+def test_histogram_launcher_refuses_bad_shapes(cuda, cs, cpr):
+    """A cluster past the portable 8 blocks, an empty one or no cluster a
+    row is refused with cudaErrorInvalidValue (1) before anything
+    launches, and the next call is unharmed."""
+    from zstdsharp_tpu_torch import _build
+
+    d, m = _hist_operands("rows4x9000-random", cuda)
+    out = torch.empty(4, 256, dtype=torch.int32, device=cuda)
+    scratch = torch.empty(4, 16, 256, dtype=torch.int32, device=cuda)
+    rc = _build.load().zt_histogram(
+        d.data_ptr(), m.data_ptr(), 4, d.shape[1], out.data_ptr(),
+        scratch.data_ptr(), cs, cpr,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert rc == 1
+    assert torch.equal(hg.histogram_u8(d, m), hg.histogram_plain(d, m))
+
+
+def test_histogram_writes_every_bin(cuda):
+    """The output comes from torch.empty: fill the caching allocator's
+    block of that size with 0xFF first, and every bin must still be
+    right, zeros included."""
+    d, m = _hist_operands("rows4x9000-prefix", cuda)
+    junk = torch.empty(4, 256, dtype=torch.int32, device=cuda)
+    junk.fill_(-1)
+    ptr = junk.data_ptr()
+    del junk
+    got = hg.histogram_u8(d, m)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, hg.histogram_plain(d, m))
+    assert bool((got == 0).any())
+
+
+def test_histogram_is_deterministic(cuda):
+    d, m = _hist_operands("vector4MB+1", cuda)
+    a = hg.histogram_u8(d, m)
+    b = hg.histogram_u8(d, m)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_encode_on_card_equals_cpu(cuda):

@@ -104,8 +104,11 @@ def _build() -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if missing or stale."""
+    """The kernel library, built first if missing or stale.  Once loaded
+    it is returned without taking the lock: every launch calls this."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -118,6 +121,9 @@ def load() -> ctypes.CDLL:
         lib.zt_fse_decode.restype = i
         lib.zt_fse_decode.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, p]
         lib.zt_histogram.restype = i
-        lib.zt_histogram.argtypes = [p, p, i, ctypes.c_longlong, p, p]
+        lib.zt_histogram.argtypes = [p, p, i, ctypes.c_longlong, p, p, i, i,
+                                     p]
+        lib.zt_histogram_floor.restype = i
+        lib.zt_histogram_floor.argtypes = [i, i, i, p]
         _lib = lib
         return lib

@@ -1,4 +1,4 @@
-"""Operand checks and stream lookup shared by the kernel wrappers."""
+"""Operand checks and the launch path shared by the kernel wrappers."""
 
 from __future__ import annotations
 
@@ -23,11 +23,10 @@ def check_operand(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def stream_handle(device: torch.device) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on `device`."""
+def check_cuda(device: torch.device) -> None:
+    """Raise unless `device` is a CUDA device: the kernels have no other."""
     if device.type != "cuda":
         raise ValueError(f"no CUDA kernel for tensors on {device}")
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check_rc(kernel: str, rc: int) -> None:
@@ -37,12 +36,16 @@ def check_rc(kernel: str, rc: int) -> None:
 
 def launch(kernel: str, device: torch.device, fn, *args) -> None:
     """Call the C launcher `fn(*args, stream)` into PyTorch's current
-    stream on `device`, with `device` the calling thread's current CUDA
-    device, and raise on a nonzero cudaError_t.  A launcher acts on the
-    current device (``cudaFuncSetAttribute``, the launch itself), and a
-    thread starts on cuda:0, so without the guard a worker thread's launch
-    into another card's stream fails."""
-    stream = stream_handle(device)
-    with torch.cuda.device(device):
+    stream on `device` (a tensor's CUDA device, so it has an index), and
+    raise on a nonzero cudaError_t.  A launcher acts on the calling
+    thread's current device (``cudaFuncSetAttribute``, the launch itself),
+    and a thread starts on cuda:0, so when `device` is another card the
+    call runs with `device` made current.  The stream handle is looked up
+    once, and the device switched only when it differs."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
         rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     check_rc(kernel, rc)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ._launch import check_operand, launch, stream_handle
+from ._launch import check_cuda, check_operand, launch
 
 # Copied from zstdsharp_tpu/ops/device_fse.py (importing it would import
 # JAX through zstdsharp_tpu/ops/__init__.py).
@@ -171,7 +171,7 @@ def decode_lanemajor(ops: dict):
     args = [ops[k] for k in _OPERANDS]
     if dev.type == "cpu":
         return decode_plain(*args, t_len)
-    stream_handle(dev)  # raises off CUDA
+    check_cuda(dev)
     # the kernel stages rows with 16-byte copies: operands start aligned
     args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
     outs = [torch.empty((nl, t_len), dtype=torch.int32, device=dev)

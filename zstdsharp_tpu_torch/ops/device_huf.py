@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ._launch import check_operand, launch, stream_handle
+from ._launch import check_cuda, check_operand, launch
 
 # Copied from zstdsharp_tpu/ops/device_huf.py (importing it would import
 # JAX through zstdsharp_tpu/ops/__init__.py).
@@ -133,7 +133,7 @@ def decode_lanemajor(ops: dict) -> torch.Tensor:
     args = [ops[k] for k in _OPERANDS]
     if dev.type == "cpu":
         return decode_plain(*args, t_len)
-    stream_handle(dev)  # raises off CUDA
+    check_cuda(dev)
     out = torch.empty((nl, t_len), dtype=torch.int32, device=dev)
     a = [x.data_ptr() for x in args]
     launch("huf_decode", dev, _build.load().zt_huf_decode, a[0], wb, *a[1:],
