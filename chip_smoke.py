@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two record-batch paths, its data-parallel stream codec
-and the entry points of graft_entry.py once each through their user entry
+Drives the port's two record-batch paths (decode with and without a
+dictionary), its data-parallel stream codec, the entry points of
+graft_entry.py and the LDM anchor scan once each through their user entry
 points:
 
 * decode: ``zstdsharp_tpu_torch.decode.frame.Decompressor().unwrap_many_device``
@@ -13,7 +14,13 @@ points:
   on the bench's encode workload (bench.py: the first 4 MB of the same
   corpus as 256 records of 16 KB) plus one 128 KB record (the top bucket),
   one of 200 KB (routed to the host encoder), 9000 random bytes (raw
-  fallback), an empty record and ``b"ab" * 9000``.
+  fallback), an empty record and ``b"ab" * 9000``;
+* dictionary decode: ``Decompressor().load_dictionary(d)`` then
+  ``unwrap_many_device`` on the two committed sets of
+  tests/torch_data/dict_sets.py: the bench's dictionary batch (5,000 JSON
+  records, a 4,096-byte dictionary, level 3) and 128 records of 24 KB of
+  ``make_corpus`` with a 112,640-byte dictionary at level 19 plus two
+  300 KB multi-block frames at level 3.
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi) and the build of the CUDA kernels from csrc/;
@@ -68,7 +75,15 @@ Phases, each printed on its own line:
  12. ``zstdsharp_tpu_torch.graft_entry``: ``entry("cuda")`` equals
      ``entry("cpu")`` and launched the histogram kernel, and
      ``dryrun_multichip(1)`` completes on the card (its lines printed);
- 13. one more level-1 stream compress of phase 9's input under
+ 13. dictionary decode of each set: bytes equal the records, the rows
+     equal the port's CPU run and so does the host-routed count (0), each
+     decode kernel launched across the two sets, and each kernel equals
+     its plain version on a set's operands (Huffman: set 2, FSE: set 1);
+     prints (not asserted) end-to-end and marginal GB/s, the stage times
+     and the engine's ``NativeDDict.decompress_many`` on the same frames;
+ 14. ``ops.ldm.ldm_anchor_mask`` over the 8 MB corpus prefix on the card
+     equals its CPU run; prints its time (torch ops, no hand kernel);
+ 15. one more level-1 stream compress of phase 9's input under
      torch.profiler: device events, the device's busy share (the union of
      their intervals over the call's wall time) and the time of the
      copies and sorts.  It runs last so that no timed phase follows a
@@ -76,8 +91,9 @@ Phases, each printed on its own line:
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel's "launches" in the JSON line sums them.
-The script imports the port and ``bench.make_corpus`` (a data generator)
-only: nothing of JAX or of the JAX package.
+The script imports the port, ``bench.make_corpus`` (a data generator) and
+the loader of the committed dictionary sets only: nothing of JAX or of the
+JAX package.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one CUDA device and exits non-zero, printing no result, when there
@@ -634,6 +650,138 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
     return launches
 
 
+def _dict_sets():
+    """tests/torch_data/dict_sets.py: the committed dictionary frames."""
+    sys.path.insert(0, str(ROOT / "tests" / "torch_data"))
+    import dict_sets
+
+    return dict_sets
+
+
+def _dict_kernel_check(mod, ops, outputs_of, name):
+    """One decode kernel against its plain version on a dictionary batch's
+    operands (launches outside the counted runs).  Returns max_abs_err."""
+    import torch
+
+    got = outputs_of(mod.decode_lanemajor(ops))
+    torch.cuda.synchronize()
+    want = outputs_of(mod.decode_plain(*(ops[k] for k in mod._OPERANDS),
+                                       got[0].shape[1]))
+    torch.cuda.synchronize()
+    err = max(float((g.long() - w.long()).abs().max()) for g, w in
+              zip(got, want))
+    _check(err == 0.0, f"{name} kernel equals its plain version on the "
+           "dictionary operands")
+    return err
+
+
+def _dict_phases(big, dev, card):
+    """Phase 13: dictionary decode of both committed sets.  Returns each
+    decode kernel's launches in the two counted runs."""
+    import numpy as np
+    import torch
+
+    from zstdsharp_tpu_torch.decode import device_pipeline as dp
+    from zstdsharp_tpu_torch.decode.frame import Decompressor
+    from zstdsharp_tpu_torch.dictionary import parse_dictionary
+    from zstdsharp_tpu_torch.ops import device_fse as df
+    from zstdsharp_tpu_torch.ops import device_huf as dh
+
+    sets = _dict_sets()
+    launches = {"huf_decode": 0, "fse_decode": 0}
+    for name, mod, which, outputs_of in (
+            ("json", df, "fse", lambda o: o),
+            ("corpus", dh, "huf", lambda o: (o,))):
+        d, frames, recs = sets.load(name, big)
+        pd = parse_dictionary(d)
+        plan = dp.plan_batch(frames, pd)
+        ops = dp.ops_to_device(getattr(plan.nb, f"{which}_ops")(0), dev)
+        dp._release_ops(plan.nb, None)
+        err = _dict_kernel_check(mod, ops, outputs_of, f"{which} ({name})")
+
+        dec = Decompressor()
+        dec.load_dictionary(d)
+        _reset_counts()
+        outs, lens, host = dec.unwrap_many_device(frames, dev)
+        torch.cuda.synchronize()
+        counts = _counts()
+        for k in launches:
+            launches[k] += counts[k]
+        _check(_frame_bytes(len(frames), outs, lens, host) == recs,
+               f"set {name}: decoded bytes equal the records")
+        c_outs, c_lens, c_host = dp.decode_batch_device(frames, "cpu",
+                                                        ddict=pd)
+        routed = [fi for fi, v in host.items() if isinstance(v, bytes)]
+        c_routed = [fi for fi, v in c_host.items() if isinstance(v, bytes)]
+        _check(routed == c_routed == [], f"set {name}: host-routed {routed},"
+               f" CPU port {c_routed}")
+        _check(np.array_equal(lens, c_lens) and len(outs) == len(c_outs)
+               and all(torch.equal(o.cpu(), c) for o, c in zip(outs, c_outs))
+               and all(torch.equal(v.cpu(), c_host[k])
+                       for k, v in host.items()),
+               f"set {name}: rows equal the port's CPU run")
+
+        payload = sum(map(len, recs))
+
+        def run():
+            dec.unwrap_many_device(frames, dev)
+            torch.cuda.synchronize()
+
+        run()
+        e2e = sorted(_timed(run) for _ in range(3))[1]
+        marg = max((_timed(lambda: [run() for _ in range(3)]) - _timed(run))
+                   / 2, 1e-9)
+        stages = {}
+        dp.decode_batch_device(frames, dev, ddict=pd, timings=stages)
+        with pd.native() as dd:
+            _check(dd.decompress_many(frames) == recs,
+                   f"set {name}: NativeDDict.decompress_many")
+            host_s = sorted(_timed(lambda: dd.decompress_many(frames))
+                            for _ in range(3))[1]
+        print(f"phase dictionary {name}: {len(frames)} frames, "
+              f"{sum(map(len, frames))} B -> {payload} B byte-exact via "
+              f"load_dictionary ({len(d)} B) + unwrap_many_device, rows == "
+              f"CPU port, host-routed 0 (CPU port 0); {which} kernel == plain "
+              f"on the set's operands (max_abs_err {err}); launches {counts}; "
+              f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} "
+              f"ms), marginal {payload / marg / 1e9:.4f} GB/s "
+              f"({marg * 1e3:.2f} ms); stages ms "
+              f"{ {k: round(v * 1e3, 3) for k, v in stages.items()} }; host "
+              f"NativeDDict.decompress_many {payload / host_s / 1e9:.4f} GB/s "
+              f"({host_s * 1e3:.2f} ms) on {card}")
+    _check(all(v > 0 for v in launches.values()),
+           f"decode kernels launched on the dictionary path {launches}")
+    return launches
+
+
+def _ldm_phase(data, dev, card):
+    """Phase 14: the LDM anchor scan over the 8 MB prefix on the card."""
+    import numpy as np
+    import torch
+
+    from zstdsharp_tpu_torch.kernel_bench import bound
+    from zstdsharp_tpu_torch.ops.ldm import DEFAULT_RATE_LOG, ldm_anchor_mask
+
+    src = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    src_d = src.to(dev)
+    got = ldm_anchor_mask(src_d)
+    torch.cuda.synchronize()
+    want = ldm_anchor_mask(src)
+    _check(got.device == dev and torch.equal(got.cpu(), want),
+           "ldm_anchor_mask on the card equals its CPU run")
+    ms = _gpu_ms(lambda: ldm_anchor_mask(src_d), 20)
+    cpu_ms = _timed(lambda: ldm_anchor_mask(src)) * 1e3
+    n, r = len(data), DEFAULT_RATE_LOG
+    # a byte in and a mask byte out; gear (5 operations), r - 1 shifted
+    # adds, the mask and the compare
+    bound_ms, bound_by = bound(2 * n, n * (5 + 2 * (r - 1) + 2))
+    print(f"phase ldm: ldm_anchor_mask(rate_log {r}) over {n} B on the "
+          f"card == CPU run, {int(got.sum())} anchors; {ms:.4f} ms (CUDA "
+          f"events over 20 calls; torch ops, no hand kernel), bound "
+          f"{bound_ms:.5f} ms ({bound_by}); host CPU {cpu_ms:.1f} ms on "
+          f"{card}")
+
+
 def main() -> int:
     if not (ROOT / "zstdsharp_tpu_torch").is_dir():
         print("chip_smoke.py: zstdsharp_tpu_torch/ not found beside this "
@@ -740,6 +888,9 @@ def main() -> int:
     dp_launches = _stream_phases(big, data, recs, frames,
                                  _encode_workload(data)[0], dev, card)
     launches = {k: launches[k] + dp_launches[k] for k in launches}
+    for k, v in _dict_phases(big, dev, card).items():
+        launches[k] += v
+    _ldm_phase(data, dev, card)
     _stream_profile(big, dev, card)
 
     kernels = [{"name": name, "route": "cuda",

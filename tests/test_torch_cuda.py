@@ -328,6 +328,92 @@ def test_pipeline_on_card_equals_cpu(cuda):
     assert stats == {"device_frames": 9, "host_frames": 0}
 
 
+def _dict_sets():
+    """tests/torch_data/dict_sets.py, the committed dictionary frames."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_data"))
+    import dict_sets
+
+    return dict_sets
+
+
+def _bytes_of(n, outs, lens, host):
+    """Each frame's bytes from unwrap_many_device's return: rows follow the
+    frames that host_results does not hold."""
+    rows = [r for o in outs for r in o.cpu().numpy()]
+    got, k = [], 0
+    for fi in range(n):
+        v = host.get(fi)
+        if v is None:
+            got.append(rows[k][:lens[k]].tobytes())
+            k += 1
+        else:
+            got.append(v if isinstance(v, bytes) else v.cpu().numpy().tobytes())
+    return got
+
+
+@pytest.mark.parametrize("name", ["json", "corpus"])
+def test_dictionary_set_on_card_equals_cpu(cuda, name):
+    """A committed dictionary set through load_dictionary and
+    unwrap_many_device on the card: every frame on the card, rows equal to
+    the records and to the port's CPU run.  Set 1's literal sections are
+    all raw, so it launches the FSE kernel only; set 2 launches both (with
+    the dictionary's Huffman weights on its treeless sections)."""
+    d, frames, recs = _dict_sets().load(name)
+    dec = Decompressor()
+    dec.load_dictionary(d)
+    huf0, fse0 = dh.decode_lanemajor.launches, df.decode_lanemajor.launches
+    outs, lens, host = dec.unwrap_many_device(frames, cuda)
+    torch.cuda.synchronize()
+    assert df.decode_lanemajor.launches > fse0
+    assert (dh.decode_lanemajor.launches > huf0) == (name == "corpus")
+    assert not any(isinstance(v, bytes) for v in host.values())
+    assert all(o.device.type == "cuda" for o in outs)
+    assert all(v.device.type == "cuda" for v in host.values())
+    assert _bytes_of(len(frames), outs, lens, host) == recs
+    c_outs, c_lens, c_host = dp.decode_batch_device(frames, "cpu",
+                                                    ddict=dec._dict)
+    assert np.array_equal(lens, c_lens) and len(outs) == len(c_outs)
+    for o, c in zip(outs, c_outs):
+        assert torch.equal(o.cpu(), c)
+    assert set(host) == set(c_host)
+    assert all(torch.equal(v.cpu(), c_host[k]) for k, v in host.items())
+
+
+def test_dictionary_kernels_equal_plain(cuda):
+    """Each decode kernel against its plain version on a dictionary
+    batch's operands: the Huffman window of set 2 (fresh trees and the
+    dictionary's weights) and the FSE window of set 1 (the dictionary's
+    tables and repcodes in the lane states)."""
+    from zstdsharp_tpu_torch.dictionary import parse_dictionary
+
+    sets = _dict_sets()
+    for name, which in (("corpus", "huf"), ("json", "fse")):
+        d, frames, _ = sets.load(name)
+        plan = dp.plan_batch(frames, parse_dictionary(d))
+        ops = dp.ops_to_device(getattr(plan.nb, f"{which}_ops")(0), cuda)
+        dp._release_ops(plan.nb, None)
+        if which == "huf":
+            assert int(ops["nsym"].max()) > 0
+            _huf_equal_plain(ops)
+        else:
+            assert int(ops["nseq"].max()) > 0
+            _fse_equal_plain(ops)
+
+
+@pytest.mark.parametrize("rate_log", [4, 7, 12])
+def test_ldm_anchor_mask_on_card_equals_cpu(cuda, rate_log):
+    from zstdsharp_tpu_torch.ops.ldm import ldm_anchor_mask
+
+    src = torch.from_numpy(np.frombuffer(_corpus((1 << 20) + 3), np.uint8)
+                           .copy())
+    got = ldm_anchor_mask(src.to(cuda), rate_log)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), ldm_anchor_mask(src, rate_log))
+
+
 def test_last_sequence_reading_no_bits_on_card(cuda):
     results, stats = dp.decode_batch_device([EARLY_END_FRAME], cuda,
                                             materialize=True)

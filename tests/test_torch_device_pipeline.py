@@ -1,8 +1,12 @@
 """The torch port's record-batch decode plane end to end, on the CPU (the
 kernel wrappers take their plain torch versions there).  The cases mirror
 tests/test_device_pipeline.py; decoded bytes must equal the inputs, and the
-device-resident rows and lengths must equal the JAX package's exactly.
+device-resident rows and lengths must equal the JAX package's exactly, with
+and without a dictionary.
 """
+
+import sys
+from pathlib import Path
 
 import jax  # noqa: F401  (the reference runs on the CPU in this process)
 import numpy as np
@@ -12,10 +16,16 @@ import zstandard
 
 from zstdsharp_tpu.decode import device_pipeline as ref
 from zstdsharp_tpu.decode.frame import parse_frame_header
+from zstdsharp_tpu.dictionary import parse_dictionary as r_parse_dictionary
 from zstdsharp_tpu.encode.frame import compress
+from zstdsharp_tpu.errors import ZstdError as RZstdError
 from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor
+from zstdsharp_tpu_torch.dictionary import parse_dictionary
 from zstdsharp_tpu_torch.errors import ZstdError, ZstdErrorCode
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_data"))
+import dict_sets  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -214,19 +224,275 @@ def test_tablelog12_frame_routes_to_host():
 
 
 def test_dictionary_raises_not_implemented():
+    """Dictionary frames once raised NotImplementedError; they now decode
+    on the device through both entry points (the reference's
+    test_unwrap_many_device_with_dict)."""
     rng = np.random.default_rng(64)
     words = [b"unwrap ", b"many ", b"device ", b"dict "]
     samples = [b"".join(words[int(i)] for i in rng.integers(0, 4, 30))
                for _ in range(200)]
     d = zstandard.train_dictionary(4096, samples)
-    frames = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(
-        samples[0] * 3)]
+    recs = [b"".join(words[int(i)] for i in rng.integers(0, 4, 150))
+            for _ in range(5)] + [samples[0] * 3]
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(r)
+              for r in recs]
     dec = Decompressor()
     dec.load_dictionary(d.as_bytes())
-    with pytest.raises(NotImplementedError):
-        dec.unwrap_many_device(frames, CPU)
-    with pytest.raises(NotImplementedError):
-        dp.decode_batch_device(frames, CPU, ddict=dec._dict)
+    outs, lens, host = dec.unwrap_many_device(frames, CPU)
+    assert not host and outs[0].device == CPU
+    assert _bytes_of(len(frames), outs, lens, host) == recs
+    results, stats = dp.decode_batch_device(frames, CPU, materialize=True,
+                                            ddict=dec._dict)
+    assert results == recs
+    assert stats == {"device_frames": len(recs), "host_frames": 0}
+
+
+# ---------------------------------------------------------------------------
+# dictionary frames against the reference
+# ---------------------------------------------------------------------------
+
+
+def _bytes_of(n, outs, lens, host):
+    """Each frame's bytes from decode_batch_device's device-resident
+    return: rows follow the frames host_results does not hold."""
+    rows = [r for o in outs for r in o.numpy()]
+    got, k = [], 0
+    for fi in range(n):
+        if fi in host:
+            v = host[fi]
+            got.append(v if isinstance(v, bytes) else v.numpy().tobytes())
+        else:
+            got.append(rows[k][:lens[k]].tobytes())
+            k += 1
+    return got
+
+
+def _equal_reference(frames, dict_bytes, ref_wrong=frozenset()):
+    """The port and the reference on one dictionary batch: equal rows,
+    lengths and host_results, except the multi-block rows of the frames in
+    `ref_wrong`, which the reference gets wrong (ROADMAP Queue 3) and which
+    must then differ.  Returns the port's."""
+    outs, lens, host = dp.decode_batch_device(
+        frames, CPU, ddict=parse_dictionary(dict_bytes))
+    r_outs, r_lens, r_host = ref.decode_batch_device(
+        frames, ddict=r_parse_dictionary(dict_bytes))
+    assert np.array_equal(lens, r_lens)
+    assert len(outs) == len(r_outs)
+    for o, r in zip(outs, r_outs):
+        assert o.dtype == torch.uint8 and np.array_equal(o.numpy(),
+                                                         np.asarray(r))
+    assert set(host) == set(r_host)
+    for fi, v in host.items():
+        if isinstance(v, bytes):
+            assert v == r_host[fi]
+        else:
+            same = np.array_equal(v.numpy(), np.asarray(r_host[fi]))
+            assert same != (fi in ref_wrong), fi
+    return outs, lens, host
+
+
+def _plan(frames, dict_bytes):
+    plan = dp.plan_batch(frames, parse_dictionary(dict_bytes))
+    dp._release_ops(plan.nb, None)
+    return plan
+
+
+def _lit_type(frame: bytes):
+    """The literal-section type of a frame's first block, from its header
+    (None for a raw or RLE block)."""
+    p = parse_frame_header(np.frombuffer(frame, np.uint8)).header_size
+    bh = int.from_bytes(frame[p:p + 3], "little")
+    return frame[p + 3] & 3 if (bh >> 1) & 3 == 2 else None
+
+
+def _dict_case():
+    """tests/test_device_pipeline.py's dictionary case: a dictionary
+    trained on 300 samples of 40 words, 8 records repeating a sample and 4
+    of 800 words.  Returns (dictionary, records)."""
+    rng = np.random.default_rng(62)
+    words = [b"alpha ", b"bravo ", b"charlie ", b"delta ", b"echo "]
+
+    def rec(n):
+        return b"".join(words[int(i)] for i in rng.integers(0, 5, n))
+
+    samples = [rec(40) for _ in range(300)]
+    d = zstandard.train_dictionary(8192, samples)
+    return d, [samples[i] * 3 for i in range(8)] + [rec(800)
+                                                    for _ in range(4)]
+
+
+@pytest.mark.parametrize("level", [1, 3, 19])
+def test_dictionary_frames_equal_reference(level):
+    """The reference's dictionary records at its three levels, plus a
+    frame written without its dictionary ID and a plain frame in the same
+    batch: all on the device, rows equal to the reference's, bytes to the
+    records."""
+    d, recs = _dict_case()
+    frames = [zstandard.ZstdCompressor(level=level, dict_data=d).compress(r)
+              for r in recs]
+    frames.append(zstandard.ZstdCompressor(
+        level=level, dict_data=d, write_dict_id=False).compress(recs[9]))
+    frames.append(zstandard.ZstdCompressor(level=level).compress(recs[10]))
+    want = recs + [recs[9], recs[10]]
+    hdrs = [parse_frame_header(np.frombuffer(f, np.uint8)) for f in frames]
+    assert hdrs[-3].dict_id == d.dict_id() and hdrs[-2].dict_id == 0 == \
+        hdrs[-1].dict_id
+    assert not _plan(frames, d.as_bytes()).host_routed
+    outs, lens, host = _equal_reference(frames, d.as_bytes())
+    assert not host
+    assert _bytes_of(len(frames), outs, lens, host) == want
+
+
+def test_treeless_literals_decode_on_device():
+    """Level-1 dictionary frames whose literal section is treeless (type 3,
+    from its header) run as Huffman device lanes with the dictionary's
+    weights."""
+    d, recs = _dict_case()
+    frames = [zstandard.ZstdCompressor(level=1, dict_data=d).compress(r)
+              for r in recs]
+    treeless = [fi for fi, f in enumerate(frames) if _lit_type(f) == 3]
+    assert treeless
+    plan = _plan(frames, d.as_bytes())
+    assert not plan.host_routed and not plan.mb_frames
+    by_frame = {b.frame_idx: b for b in plan.blocks}
+    assert all(by_frame[fi].lit_kind == 1 for fi in treeless)
+    assert dp.scan_eligibility(frames, parse_dictionary(d.as_bytes())) == {}
+    assert set(dp.scan_eligibility(frames)) >= set(treeless)
+    results, stats = dp.decode_batch_device(
+        frames, CPU, materialize=True, ddict=parse_dictionary(d.as_bytes()))
+    assert results == recs and stats["host_frames"] == 0
+
+
+def test_dictionary_multiblock_equals_reference():
+    """The reference's multi-block dictionary case: contents over 128 KB
+    run as dependent rounds whose accumulators start with the dictionary's
+    tail."""
+    rng = np.random.default_rng(84)
+    words = [b"multi ", b"block ", b"frame ", b"round ", b"window "]
+
+    def rec(n):
+        return b"".join(words[int(i)] for i in rng.integers(0, 5, n))
+
+    d = zstandard.train_dictionary(8192, [rec(40) for _ in range(200)])
+    recs = [rec(40_000), rec(90_000)]
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(r)
+              for r in recs]
+    assert all(len(r) > (128 << 10) for r in recs)
+    plan = _plan(frames, d.as_bytes())
+    assert not plan.host_routed and len(plan.mb_frames) == 2
+    outs, lens, host = _equal_reference(frames, d.as_bytes())
+    assert outs == [] and set(host) == {0, 1}
+    assert _bytes_of(2, outs, lens, host) == recs
+
+
+def test_raw_content_dictionary_equals_reference():
+    """A dictionary without the magic is raw content: no entropy, its
+    bytes the window (a 32 KB row) that the records' matches reach into."""
+    content = b"".join(_records(4, 5_000, seed=91))
+    zd = zstandard.ZstdCompressionDict(
+        content, dict_type=zstandard.DICT_TYPE_RAWCONTENT)
+    recs = [content[i:i + 3_000] + r for i, r in
+            zip((0, 7_000, 13_000), _records(3, 2_000, seed=92))]
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=zd).compress(r)
+              for r in recs]
+    pd = parse_dictionary(content)
+    assert pd.entropy is None and pd.dict_id == 0
+    assert dp._window_rows(content, 4, CPU).shape == (4, 1 << 15)
+    assert not _plan(frames, content).host_routed
+    outs, lens, host = _equal_reference(frames, content)
+    assert _bytes_of(3, outs, lens, host) == recs
+    assert sum(len(f) for f in frames) < sum(map(len, recs)) // 2
+
+
+def test_dictionary_over_128kb_goes_to_the_host():
+    content = b"".join(_records(30, 5_000, seed=93))
+    assert len(content) > (1 << 17)
+    zd = zstandard.ZstdCompressionDict(
+        content, dict_type=zstandard.DICT_TYPE_RAWCONTENT)
+    recs = [content[-9_000:-3_000], _records(1, 4_000, seed=94)[0]]
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=zd).compress(r)
+              for r in recs]
+    plan = _plan(frames, content)
+    assert plan.host_routed == {0: "dict > 128KB window envelope",
+                                1: "dict > 128KB window envelope"}
+    outs, lens, host = _equal_reference(frames, content)
+    assert outs == [] and host == {0: recs[0], 1: recs[1]}
+
+
+def _two_dictionaries():
+    d, recs = _dict_case()
+    rng = np.random.default_rng(95)
+    other = zstandard.train_dictionary(4096, [bytes(rng.integers(
+        97, 105, 60, dtype=np.uint8)) for _ in range(300)])
+    assert other.dict_id() != d.dict_id()
+    return d, other, recs
+
+
+def test_wrong_dictionary_raises_as_reference():
+    """A frame that names another dictionary's ID in a dictionary batch is
+    routed to the host, which raises dictionary_wrong (32), as the
+    reference does."""
+    d, other, recs = _two_dictionaries()
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(recs[0]),
+              zstandard.ZstdCompressor(level=3, dict_data=other).compress(
+                  recs[1])]
+    assert _plan(frames, d.as_bytes()).host_routed == {
+        1: "dictionary required"}
+    with pytest.raises(RZstdError) as want:
+        ref.decode_batch_device(frames, ddict=r_parse_dictionary(d.as_bytes()))
+    with pytest.raises(ZstdError) as got:
+        dp.decode_batch_device(frames, CPU,
+                               ddict=parse_dictionary(d.as_bytes()))
+    assert int(got.value.code) == int(want.value.code) == 32
+    assert got.value.code == ZstdErrorCode.dictionary_wrong
+
+
+def test_dictionary_frame_without_dictionary_raises_as_reference():
+    """Without a dictionary a dictionary frame goes to the host engine,
+    whose body decode fails: corruption_detected (20), as the reference."""
+    d, recs = _dict_case()
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(recs[9])]
+    assert dp.scan_eligibility(frames) == {0: "dictionary required"}
+    with pytest.raises(RZstdError) as want:
+        ref.decode_batch_device(frames)
+    with pytest.raises(ZstdError) as got:
+        dp.decode_batch_device(frames, CPU)
+    assert int(got.value.code) == int(want.value.code) == 20
+
+
+@pytest.mark.parametrize("name,part", [("json", slice(0, 160)),
+                                       ("corpus", slice(88, 91))])
+def test_committed_dictionary_sets(name, part):
+    """The card's dictionary data (tests/torch_data): every frame decodes
+    with zstandard to its record, and a part of each set (set 2's part
+    holds treeless, fresh-tree and raw literal sections and a multi-block
+    frame) gives the reference's rows through the port.
+
+    The multi-block frame (set 2's frame 89) is single-segment: its window
+    is its 24,576-byte content, yet its blocks reach 112,493 bytes of
+    dictionary behind it, as libzstd allows.  The reference sizes the
+    dependent rounds' window from the frame's window, cuts the dictionary
+    and returns wrong bytes without an error; the port's window holds the
+    dictionary and the content (ROADMAP Queue 3)."""
+    d, frames, recs = dict_sets.load(name)
+    assert len(frames) == len(recs) == {"json": 5000, "corpus": 130}[name]
+    assert len(d) == {"json": 4202, "corpus": 112_640}[name]
+    zd = zstandard.ZstdDecompressor(dict_data=zstandard.ZstdCompressionDict(d))
+    assert [zd.decompress(f) for f in frames] == recs
+    frames, recs = frames[part], recs[part]
+    plan = _plan(frames, d)
+    assert not plan.host_routed
+    ref_wrong = set()
+    if name == "corpus":
+        assert {0, 2, 3} <= set(map(_lit_type, frames))
+        (mb,) = plan.mb_frames
+        hdr = parse_frame_header(np.frombuffer(frames[mb["frame_idx"]],
+                                               np.uint8))
+        assert hdr.single_segment and hdr.window_size == 24_576
+        assert mb["window"] == 24_576 + len(parse_dictionary(d).content)
+        ref_wrong = {mb["frame_idx"]}
+    outs, lens, host = _equal_reference(frames, d, ref_wrong)
+    assert _bytes_of(len(frames), outs, lens, host) == recs
 
 
 def test_unwrap_many_device_entry_point():

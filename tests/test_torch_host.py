@@ -509,3 +509,186 @@ def test_load_dictionary_keeps_parsed_and_none_drops():
     assert dec._dict.dict_id == rdict.parse_dictionary(_DICT).dict_id
     dec.load_dictionary(None)
     assert dec._dict is None
+
+
+# ---------------------------------------------------------------------------
+# the host route with a dictionary
+# ---------------------------------------------------------------------------
+
+
+def _dict_records(n: int, seed: int) -> list[bytes]:
+    """Records in the trained dictionary's vocabulary."""
+    rng = np.random.default_rng(seed)
+    words = [b"unwrap ", b"many ", b"device ", b"dict ", b"frame "]
+    return [b"".join(words[int(i)] for i in rng.integers(0, 5, m))
+            for m in rng.integers(5, 400, n)]
+
+
+def _dict_frames():
+    """(name, frame, record): the trained dictionary's frames at several
+    levels, with a checksum, without a content size, without the ID, a
+    plain frame, and a raw-content dictionary's frame."""
+    zd = zstandard.ZstdCompressionDict(_DICT)
+    recs = _dict_records(8, 66)
+    out = [(f"level{lv}", zstandard.ZstdCompressor(
+        level=lv, dict_data=zd).compress(r), r)
+        for lv, r in zip((1, 3, 9, 19), recs)]
+    for name, kw, r in (("checksum", dict(write_checksum=True), recs[4]),
+                        ("no_size", dict(write_content_size=False), recs[5]),
+                        ("no_id", dict(write_dict_id=False), recs[6])):
+        out.append((name, zstandard.ZstdCompressor(
+            level=3, dict_data=zd, **kw).compress(r), r))
+    out.append(("plain", zstandard.ZstdCompressor(level=3).compress(recs[7]),
+                recs[7]))
+    return out
+
+
+_DICT_FRAMES = _dict_frames()
+
+
+def _reference_decode(f: bytes, data: bytes):
+    pd = rdict.parse_dictionary(data)
+    return rframe.FrameDecoder(dict_content=pd.content,
+                               dict_entropy=pd.entropy,
+                               dict_id=pd.dict_id).decode(f)
+
+
+@pytest.mark.parametrize("name,f,rec", _DICT_FRAMES,
+                         ids=[n for n, _, _ in _DICT_FRAMES])
+def test_decode_frame_with_dictionary_equals_reference(name, f, rec):
+    content, consumed = _reference_decode(f, _DICT)
+    with dictionary.parse_dictionary(_DICT).native() as dd:
+        got, n = frame.decode_frame(f, dd)
+    assert got.tobytes() == content.tobytes() == rec
+    assert n == consumed == len(f)
+
+
+def test_decode_frame_with_raw_content_dictionary_equals_reference():
+    content = _data(20_000, seed=67)
+    rec = content[5_000:9_000] + content[:2_000]
+    f = zstandard.ZstdCompressor(level=3, dict_data=zstandard.ZstdCompressionDict(
+        content, dict_type=zstandard.DICT_TYPE_RAWCONTENT)).compress(rec)
+    want, _ = _reference_decode(f, content)
+    with dictionary.parse_dictionary(content).native() as dd:
+        assert dd.dict_id == 0 and dd.content_len == len(content)
+        assert frame.decode_frame(f, dd)[0].tobytes() == want.tobytes() == rec
+
+
+def _other_dict_frame() -> bytes:
+    rng = np.random.default_rng(68)
+    other = zstandard.train_dictionary(2048, [bytes(rng.integers(
+        97, 104, 50, dtype=np.uint8)) for _ in range(200)])
+    assert other.dict_id() != dictionary.parse_dictionary(_DICT).dict_id
+    return zstandard.ZstdCompressor(level=3, dict_data=other).compress(
+        b"abcdefg" * 40)
+
+
+def _flipped_checksum() -> bytes:
+    f = bytearray(dict(((n, f) for n, f, _ in _DICT_FRAMES))["checksum"])
+    f[-1] ^= 0x01
+    return bytes(f)
+
+
+@pytest.mark.parametrize("case", ["wrong_dictionary", "bad_checksum"])
+def test_decode_frame_with_dictionary_raises_as_reference(case):
+    f = {"wrong_dictionary": _other_dict_frame,
+         "bad_checksum": _flipped_checksum}[case]()
+    with pytest.raises(RZstdError) as want:
+        _reference_decode(f, _DICT)
+    with dictionary.parse_dictionary(_DICT).native() as dd:
+        with pytest.raises(ZstdError) as got:
+            frame.decode_frame(f, dd)
+    assert got.value.code.name == want.value.code.name
+    assert int(got.value.code) == int(want.value.code)
+
+
+def test_native_ddict_decompress_many():
+    """One native call for the batch; a frame it cannot serve (no content
+    size, another dictionary's ID, a bad checksum) makes it None."""
+    frames = [f for n, f, _ in _DICT_FRAMES if n != "no_size"]
+    recs = [r for n, _, r in _DICT_FRAMES if n != "no_size"]
+    odd = [f for n, f, _ in _DICT_FRAMES if n == "no_size"][0]
+    with dictionary.parse_dictionary(_DICT).native() as dd:
+        assert dd.decompress_many(frames) == recs
+        assert dd.decompress_many([]) == []
+        for bad in (odd, _other_dict_frame(), _flipped_checksum()):
+            assert dd.decompress_many(frames[:3] + [bad]) is None
+        assert dd.decompress_many(frames[3:]) == recs[3:]
+
+
+def test_native_ddict_closes():
+    dd = dictionary.parse_dictionary(_DICT).native()
+    body = np.frombuffer(_DICT_FRAMES[0][1], np.uint8)
+    with dd:
+        pass
+    dd.close()  # a second close is harmless
+    with pytest.raises(ValueError, match="closed"):
+        dd.decode_frame_body(body, 100)
+    with pytest.raises(ValueError, match="closed"):
+        dd.decompress_many([_DICT_FRAMES[0][1]])
+
+
+def test_native_ddict_is_safe_across_threads():
+    """The handle's entropy scratch is shared: 12 threads decoding frames
+    against one NativeDDict, with a short switch interval, must each get
+    their records (the lock serialises the native calls).  The 30 KB
+    records carry tables of their own, which a frame decoding beside them
+    would lose to the scratch's restore without the lock."""
+    import sys
+    import threading
+
+    zd = zstandard.ZstdCompressionDict(_DICT)
+    recs = [_data(30_000, seed=s) for s in range(6)]
+    jobs = [(zstandard.ZstdCompressor(level=lv, dict_data=zd).compress(r), r)
+            for r, lv in zip(recs, (1, 3, 19, 1, 3, 19))]
+    jobs = (jobs + [(f, r) for _, f, r in _DICT_FRAMES]) * 8
+    with dictionary.parse_dictionary(_DICT).native() as dd:
+        bad, old = [], sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+
+        def work(k):
+            for f, r in jobs[k::12]:
+                try:
+                    ok = frame.decode_frame(f, dd)[0].tobytes() == r
+                except ZstdError:
+                    ok = False
+                if not ok:
+                    bad.append(k)
+
+        try:
+            threads = [threading.Thread(target=work, args=(k,))
+                       for k in range(12)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad
+
+
+def _dict_scan_batch():
+    d = rdict.parse_dictionary(_DICT)
+    frames = [f for _, f, _ in _DICT_FRAMES] + [_other_dict_frame()]
+    frames += [f for _, f in _SPECIAL if _ != "multiframe"]
+    frames.append(zstandard.ZstdCompressor(
+        level=1, dict_data=zstandard.ZstdCompressionDict(_DICT)).compress(
+        _data(300_000)))                                    # multi-block
+    assert d.entropy is not None
+    return frames
+
+
+@pytest.mark.parametrize("single_block_only", (False, True))
+def test_scan_eligibility_with_dictionary_equals_reference(single_block_only):
+    """With the trained dictionary its frames pass; with a raw-content one
+    (ID 0, no tables) they route as without a dictionary."""
+    frames = _dict_scan_batch()
+    plain = dp.scan_eligibility(frames, single_block_only=single_block_only)
+    for data in (_DICT, _data(3000, seed=69)):
+        got = dp.scan_eligibility(frames, dictionary.parse_dictionary(data),
+                                  single_block_only=single_block_only)
+        assert got == rdp.scan_eligibility(
+            frames, rdict.parse_dictionary(data),
+            single_block_only=single_block_only)
+        assert (got != plain) == (data is _DICT)

@@ -87,9 +87,11 @@ def test_sources_import_no_reference_package():
 def test_cpu_paths_load_no_reference_module():
     """Import every port module, then run the CPU decode plane (a
     multi-block frame and a host-routed one among the frames), the CPU
-    encode plane, the port's compress / decompress and its dictionary
-    parser (``Decompressor.load_dictionary``) in a clean process:
-    no module of the JAX package, and no JAX, may be loaded."""
+    encode plane, the port's compress / decompress, a dictionary batch
+    through ``Decompressor.load_dictionary`` and ``unwrap_many_device``
+    (a frame of another dictionary host-decoded beside them) and
+    ``ldm_anchor_mask`` in a clean process: no module of the JAX package,
+    and no JAX, may be loaded."""
     code = textwrap.dedent("""\
         import importlib, pkgutil, sys
         import numpy as np
@@ -124,6 +126,26 @@ def test_cpu_paths_load_no_reference_module():
         dec = Decompressor()
         dec.load_dictionary(d.as_bytes())
         assert dec._dict.dict_id == d.dict_id(), "dictionary"
+        drecs = [text(n) for n in (30, 90, 300)]
+        dframes = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(x)
+                   for x in drecs]
+        raw = zstandard.ZstdCompressionDict(
+            recs[0], dict_type=zstandard.DICT_TYPE_RAWCONTENT)
+        dframes.append(zstandard.ZstdCompressor(
+            level=3, dict_data=raw).compress(recs[0][100:400]))
+        dec.load_dictionary(recs[0])          # raw content, ID 0
+        outs, lens, host = dec.unwrap_many_device(dframes[3:], "cpu")
+        assert outs[0][0, :lens[0]].numpy().tobytes() == recs[0][100:400]
+        dec.load_dictionary(d.as_bytes())
+        outs, lens, host = dec.unwrap_many_device(dframes[:3], "cpu")
+        assert not host and [outs[0][k, :lens[k]].numpy().tobytes()
+                             for k in range(3)] == drecs, "dictionary batch"
+        import torch
+        from zstdsharp_tpu_torch.ops.ldm import (ldm_anchor_mask,
+                                                 ldm_anchor_mask_reference)
+        src = np.frombuffer(huge[:5000], np.uint8)
+        assert np.array_equal(ldm_anchor_mask(torch.from_numpy(src.copy()))
+                              .numpy(), ldm_anchor_mask_reference(src))
         bad = sorted(k for k in sys.modules
                      if k == "zstdsharp_tpu" or k.startswith("zstdsharp_tpu."))
         assert not bad, bad

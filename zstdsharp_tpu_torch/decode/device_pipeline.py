@@ -19,9 +19,15 @@ Coverage is the reference's envelope: single-block frames up to 128 KB and
 multi-block frames up to 4 MB (as dependent execution rounds) run on the
 device; frames without a content size, corrupt frames and frames beyond
 the caps are decoded by the host engine and reported in ``host_frames``.
-Dictionary frames are not ported yet: ``ddict`` raises NotImplementedError.
-Unlike the reference, a missing native planner raises instead of falling
-back to the list-based ``prepare_batch`` route.
+With a parsed dictionary (``ddict``) every frame is planned in Python, as
+in the reference (the native planner has no dictionary input), its lanes
+packed into the same native buffers: the dictionary's content tail (up to
+128 KB) is the executor's shared window row, right-aligned and broadcast
+to every lane, and seeds each multi-block accumulator; its tables and
+repcodes seed each frame's entropy, and treeless literal sections decode
+with its Huffman weights.  Host-routed frames then decode against the
+engine's ``NativeDDict``.  Unlike the reference, a missing native engine
+raises instead of falling back to the list-based ``prepare_batch`` route.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from ..ops.execseq import make_executor
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
                     decode_sequences)
-from .frame import decompress, parse_frame_header
+from .frame import decode_frame, decompress, parse_frame_header
 
 # exec batching: lanes per exec call x output bucket
 EXEC_LANES = 64
@@ -97,6 +103,8 @@ class DevicePlan:
     host_routed: dict = field(default_factory=dict)  # frame_idx -> reason
     max_out: int = 0
     max_seq: int = 0
+    # the dictionary's content tail, shared by every lane as its window
+    window: bytes = b""
     # multi-block frames: dicts {frame_idx, content, checksum, window,
     # blocks: [_BlockPlan with out_len / out_off per block]}
     mb_frames: list = field(default_factory=list)
@@ -155,21 +163,26 @@ def _parse_lit_header(payload: bytes):
     return lt, sf, (v >> 4) & 0x3FFFF, (v >> 22) & 0x3FFFF, 5
 
 
-def scan_eligibility(frames, single_block_only: bool = False) -> dict:
+def scan_eligibility(frames, ddict=None,
+                     single_block_only: bool = False) -> dict:
     """Cheap header-only partition probe: frame_idx -> host-route reason
     for frames outside the device envelope, without running ``plan_batch``
     (which host-decodes fallback sections).  Examines only the frame
     header, the first block header and the literal-section type byte, and
-    mirrors the routing conditions of ``plan_batch``.  single_block_only
-    also routes multi-block frames to the host."""
+    mirrors the routing conditions of ``plan_batch``: with a dictionary
+    (`ddict`), frames naming its ID pass, and treeless literals pass when
+    it has entropy tables.  single_block_only also routes multi-block
+    frames to the host."""
     routed = {}
+    d_id = ddict.dict_id if ddict is not None else 0
+    has_dict_huf = ddict is not None and ddict.entropy is not None
     for fi, frame in enumerate(frames):
         try:
             hdr = parse_frame_header(np.frombuffer(frame, np.uint8))
             if hdr.frame_content_size is None or hdr.frame_content_size < 0:
                 routed[fi] = "no content size"
                 continue
-            if hdr.dict_id:
+            if hdr.dict_id and hdr.dict_id != d_id:
                 routed[fi] = "dictionary required"
                 continue
             content = int(hdr.frame_content_size)
@@ -199,7 +212,7 @@ def scan_eligibility(frames, single_block_only: bool = False) -> dict:
                 continue
             payload = bytes(frame[p + 3:p + 3 + min(bsize, 5)])
             lt, sf, regen, comp, lh = _parse_lit_header(payload)
-            if lt == 3:
+            if lt == 3 and not has_dict_huf:
                 routed[fi] = "treeless literals, no dict table"
             elif regen > content or lh + (comp if lt >= 2 else 0) > bsize:
                 routed[fi] = "corrupt: literal section bounds"
@@ -449,15 +462,26 @@ def _release_ops(nb, fence) -> None:
             _CTX_POOL.append(nb)
 
 
-def _plan_multiblock(plan, fi, frame, hdr):
+def _start_entropy(ddict) -> EntropyState:
+    """A frame's starting entropy: a fresh copy of the dictionary's tables
+    and repcodes, or the format's initial state without one."""
+    if ddict is None or ddict.entropy is None:
+        return EntropyState()
+    de = ddict.entropy
+    return EntropyState(huf=de.huf, ll=de.ll, ml=de.ml, of=de.of,
+                        rep=list(de.rep))
+
+
+def _plan_multiblock(plan, fi, frame, hdr, ddict=None):
     """Walk every block of a multi-block frame (reference
-    _plan_multiblock without dictionaries): literal sections become device
-    lanes or pool spans, sequence sections are host-decoded so the repcode
-    and repeat-table chains resolve at plan time, and each block records
-    its output offset for the dependent-round executor.  Returns an error
-    string to host-route, or None on success."""
+    _plan_multiblock): literal sections become device lanes or pool spans,
+    sequence sections are host-decoded so the repcode and repeat-table
+    chains resolve at plan time, starting from the dictionary's entropy
+    when there is one, and each block records its output offset for the
+    dependent-round executor.  Returns an error string to host-route, or
+    None on success."""
     content = int(hdr.frame_content_size)
-    ent = EntropyState()
+    ent = _start_entropy(ddict)
     blocks = []
     p = hdr.header_size
     out_off = 0
@@ -548,7 +572,17 @@ def _plan_multiblock(plan, fi, frame, hdr):
         if p + 4 > len(frame):
             return "corrupt: missing checksum"
         cks = int.from_bytes(frame[p:p + 4], "little")
-    wsize = min(int(hdr.window_size or content), MB_WINDOW_CAP)
+    if plan.window:
+        # libzstd lets a block reach the whole dictionary and all the
+        # frame's output before it, whatever the frame's window (a
+        # single-segment frame declares only its content); the
+        # reference's window of the frame's size loses the dictionary's
+        # head (ROADMAP Queue 3)
+        wsize = content + len(plan.window)
+        if wsize > MB_WINDOW_CAP:
+            return "content/window beyond device caps"
+    else:
+        wsize = min(int(hdr.window_size or content), MB_WINDOW_CAP)
     plan.mb_frames.append({"frame_idx": fi, "content": content,
                            "checksum": cks, "window": wsize,
                            "blocks": blocks})
@@ -592,13 +626,26 @@ def _add_huf_lanes(plan, b, weights, sf, streams, regen) -> bool:
 
 def plan_batch(frames, ddict=None) -> DevicePlan:
     """Host header pass: split each frame into device work or a host route
-    (reference plan_batch without dictionaries).  The native planner plans
+    (reference plan_batch).  Without a dictionary the native planner plans
     single-block frames in one call; frames outside its scope take the
-    Python logic below, whose lanes pack into the same native buffers."""
-    if ddict is not None:
-        raise NotImplementedError(
-            "dictionary frames are not ported to the torch device plane yet")
+    Python planner (``_plan_python``), whose lanes pack into the same
+    native buffers.
+
+    ddict: a parsed dictionary (``dictionary.ParsedDict``).  The native
+    planner has no dictionary input, so, as in the reference, every frame
+    takes the Python planner: ``plan.window`` is the last 128 KB of the
+    dictionary's content, its tables and repcodes seed each frame's
+    entropy and treeless literal sections take its Huffman weights.  A
+    dictionary over 128 KB sends every frame to the host."""
     plan = DevicePlan(nb=_native_ops_for(frames), n_frames=len(frames))
+    if ddict is not None:
+        plan.window = np.asarray(ddict.content)[-(1 << 17):].tobytes()
+        d_huf = None
+        if ddict.entropy is not None and len(ddict.raw) >= 8:
+            d_huf = huffman.read_weights(ddict.raw[8:])[:2]
+        for fi, frame in enumerate(frames):
+            _plan_or_route(plan, fi, frame, ddict, d_huf)
+        return plan
     rcs, metas = plan.nb.plan_all(frames)
     for fi, frame in enumerate(frames):
         rc, m = int(rcs[fi]), metas[fi]
@@ -620,24 +667,33 @@ def plan_batch(frames, ddict=None) -> DevicePlan:
             plan.host_routed[fi] = _NATIVE_ROUTE.get(rc, f"native route {rc}")
             continue
         # rc < 0: outside the native planner's scope
-        try:
-            err = _plan_python(plan, fi, frame)
-        except Exception as e:  # defensive routing, as in the reference
-            err = f"plan error: {e}"
-        if err:
-            plan.host_routed[fi] = err
+        _plan_or_route(plan, fi, frame)
     return plan
 
 
-def _plan_python(plan, fi, frame):
-    """Plan one frame the native planner left to Python: a multi-block
-    frame, or a single-block frame whose streams exceed its envelope.
-    Returns a host-route reason or None."""
+def _plan_or_route(plan, fi, frame, ddict=None, d_huf=None) -> None:
+    try:
+        err = _plan_python(plan, fi, frame, ddict, d_huf)
+    except Exception as e:  # defensive routing, as in the reference
+        err = f"plan error: {e}"
+    if err:
+        plan.host_routed[fi] = err
+
+
+def _plan_python(plan, fi, frame, ddict=None, d_huf=None):
+    """Plan one frame in Python: a frame of a dictionary batch, a
+    multi-block frame, or a single-block frame whose streams exceed the
+    native planner's envelope.  `d_huf` is the dictionary's Huffman
+    (weights, tableLog) for treeless sections.  Returns a host-route
+    reason or None."""
     hdr = parse_frame_header(np.frombuffer(frame, np.uint8))
     if hdr.frame_content_size is None or hdr.frame_content_size < 0:
         return "no content size"
-    if hdr.dict_id:
+    if hdr.dict_id and hdr.dict_id != (ddict.dict_id if ddict is not None
+                                       else 0):
         return "dictionary required"
+    if ddict is not None and len(ddict.content) > (1 << 17):
+        return "dict > 128KB window envelope"
     content = int(hdr.frame_content_size)
     if content > MB_CONTENT_CAP or (
             content > (1 << 17) and hdr.window_size > MB_WINDOW_CAP):
@@ -646,7 +702,7 @@ def _plan_python(plan, fi, frame):
     bh = int.from_bytes(frame[p:p + 3], "little")
     last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
     if not last:
-        return _plan_multiblock(plan, fi, frame, hdr)
+        return _plan_multiblock(plan, fi, frame, hdr, ddict)
     body_len = bsize if btype != 1 else 1
     tail = 4 if hdr.has_checksum else 0
     if p + 3 + body_len + tail > len(frame):
@@ -669,7 +725,7 @@ def _plan_python(plan, fi, frame):
     if regen > content or lh + (comp if lt >= 2 else 0) > len(payload):
         return "corrupt: literal section bounds"
     b.lit_regen = regen
-    ent = EntropyState()
+    ent = _start_entropy(ddict)
     if lt == 0:
         b.pool_base = plan.pool_add(payload[lh:lh + regen])
         b.pool_len = regen
@@ -679,10 +735,15 @@ def _plan_python(plan, fi, frame):
         b.pool_len = 1
         lit_end = lh + 1
     else:
-        if lt == 3:
-            return "treeless literals, no dict table"
         body = payload[lh:lh + comp]
-        weights, tlog, whdr = huffman.read_weights(body)
+        if lt == 2:
+            weights, tlog, whdr = huffman.read_weights(body)
+        elif d_huf is not None:
+            (weights, tlog), whdr = d_huf, 0
+        else:
+            return "treeless literals, no dict table"
+        # the kernel peeks MAXLOG=11 bits: a (valid) tableLog-12 tree,
+        # the frame's or the dictionary's, host-decodes
         if tlog > dh.MAXLOG:
             return "huffman tableLog beyond device"
         if not _add_huf_lanes(plan, b, weights, sf, body[whdr:], regen):
@@ -802,6 +863,33 @@ def _mb_groups(mb_frames, max_group: int = 16):
             for i in range(0, len(fs), max_group)]
 
 
+def _host_decode(frames, routed, ddict) -> dict:
+    """frame_idx -> bytes of each host-routed frame: ``decompress``
+    without a dictionary; with one, ``decode_frame`` against the engine's
+    dictionary (the reference runs its Python FrameDecoder with the
+    dictionary's content, tables and ID), so a frame naming another
+    dictionary raises dictionary_wrong."""
+    if ddict is None:
+        return {fi: decompress(bytes(frames[fi])) for fi in routed}
+    if not routed:
+        return {}
+    with ddict.native() as dd:
+        return {fi: decode_frame(bytes(frames[fi]), dd)[0].tobytes()
+                for fi in routed}
+
+
+def _window_rows(tail: bytes, B: int, device) -> torch.Tensor:
+    """The executor's [B, W] window: the dictionary's content tail
+    right-aligned in the smallest of 4 KB, 32 KB and 128 KB that holds it,
+    one row broadcast to all B lanes; 8 zero bytes without a dictionary."""
+    if not tail:
+        return torch.zeros(B, 8, dtype=torch.uint8, device=device)
+    W = next(w for w in (1 << 12, 1 << 15, 1 << 17) if len(tail) <= w)
+    row = torch.zeros(W, dtype=torch.uint8)
+    row[W - len(tail):] = torch.frombuffer(bytearray(tail), dtype=torch.uint8)
+    return row.to(device).expand(B, W)
+
+
 def decode_batch_device(frames, device, materialize: bool = False,
                         ddict=None, timings: dict | None = None):
     """Decode a batch of frames on `device` (a torch device or its name).
@@ -816,13 +904,13 @@ def decode_batch_device(frames, device, materialize: bool = False,
     checksum verified (checksum_wrong on mismatch), and stats counting
     device and host frames.
 
+    ddict: a parsed dictionary (``dictionary.ParsedDict``) every frame
+    decodes against (``plan_batch``).
+
     timings: when a dict is given, the device is synchronised after each
-    stage and the stage's wall seconds are stored under "plan", "huf",
-    "fse", "exec" and "mb_exec".
+    stage and the stage's wall seconds are stored under "plan", "host"
+    (host-routed frames), "huf", "fse", "exec" and "mb_exec".
     """
-    if ddict is not None:
-        raise NotImplementedError(
-            "dictionary frames are not ported to the torch device plane yet")
     device = torch.device(device)
     clock = [time.perf_counter()]
 
@@ -835,11 +923,12 @@ def decode_batch_device(frames, device, materialize: bool = False,
         timings[stage] = timings.get(stage, 0.0) + now - clock[0]
         clock[0] = now
 
-    plan = plan_batch(frames)
+    plan = plan_batch(frames, ddict)
     tick("plan")
     nb = plan.nb
-    host_results = {fi: decompress(bytes(frames[fi]))
-                    for fi in plan.host_routed}
+    host_results = _host_decode(frames, plan.host_routed, ddict)
+    if host_results:
+        tick("host")
     if not plan.blocks and not plan.mb_frames:
         _release_ops(nb, None)  # nothing was uploaded from the ctx
         if materialize:
@@ -888,7 +977,7 @@ def decode_batch_device(frames, device, materialize: bool = False,
     # ---- stage 2: assemble lanes + execute, EXEC_LANES at a time ----
     O = _bucket(max(plan.max_out, 1), _O_BUCKETS)
     B = EXEC_LANES
-    window = torch.zeros(B, 8, dtype=torch.uint8, device=device)
+    window = _window_rows(plan.window, B, device)
     outputs = []
     lengths = np.array([b.out_len for b in plan.blocks], np.int64)
     for c0 in range(0, len(plan.blocks), B):
@@ -912,6 +1001,9 @@ def decode_batch_device(frames, device, materialize: bool = False,
                         _O_BUCKETS)
         acc = torch.zeros(F, Wb + Cb + O_max, dtype=torch.uint8,
                           device=device)
+        if plan.window:  # the dictionary's tail ends each frame's window
+            acc[:, Wb - len(plan.window):Wb] = torch.frombuffer(
+                bytearray(plan.window), dtype=torch.uint8).to(device)
         cols_w = torch.arange(Wb, device=device)[None, :]
         cols_o = torch.arange(O_max, device=device)[None, :]
         for r in range(n_rounds):

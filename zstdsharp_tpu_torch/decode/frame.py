@@ -6,7 +6,9 @@ Frame-header parse (ZSTD_getFrameHeader_advanced:462), the frame-size walk
 (ZSTD_findFrameCompressedSize:958) and ``decompress``: the multi-frame loop
 (ZSTD_decompressMultiFrame:1216, skippable frames skipped) with every
 frame body decoded by the native engine, as the reference does when its
-engine is present, and the stored checksum verified (:1186-1208).  The
+engine is present, and the stored checksum verified (:1186-1208).
+``decode_frame`` decodes one frame, with a dictionary through the engine's
+``NativeDDict`` where the reference runs its Python ``FrameDecoder``.  The
 port has no pure-Python frame decoder: without the engine it raises.
 
 ``Decompressor.unwrap_many_device`` runs the device plane
@@ -113,15 +115,22 @@ def find_frame_compressed_size(src: bytes) -> int:
     return pos
 
 
-def _decode_frame(src) -> tuple[np.ndarray, int]:
-    """One frame through the native engine (the reference's
-    FrameDecoder.decode without a dictionary, at the default window
-    limit).  Returns (content, bytes of the frame consumed)."""
+def decode_frame(src, ddict=None) -> tuple[np.ndarray, int]:
+    """One frame through the native engine: the reference's
+    FrameDecoder.decode at the default window limit, its checks in its
+    order.  With a dictionary (`ddict`, a ``native.NativeDDict``) a frame
+    that names another dictionary's ID raises dictionary_wrong, and the
+    body decodes against the dictionary's content and tables.  Returns
+    (content, bytes of the frame consumed)."""
     hdr = parse_frame_header(src)
     if hdr.window_size and not hdr.single_segment:
         check(hdr.window_size <= (1 << C.ZSTD_WINDOWLOG_LIMIT_DEFAULT),
               ZstdErrorCode.frameParameter_windowTooLarge,
               f"window {hdr.window_size} > limit")
+    d_id = ddict.dict_id if ddict is not None else 0
+    if hdr.dict_id and d_id and hdr.dict_id != d_id:
+        raise ZstdError(ZstdErrorCode.dictionary_wrong,
+                        f"frame wants dict {hdr.dict_id}, have {d_id}")
     if hdr.frame_content_size >= 0:
         # a frame of B bytes holds at most ~B/3 blocks of <= 128 KB each; a
         # larger claimed content size is a corrupt header
@@ -142,8 +151,9 @@ def _decode_frame(src) -> tuple[np.ndarray, int]:
                 break
         cap = n_blocks * min(C.ZSTD_BLOCKSIZE_MAX,
                              hdr.window_size or C.ZSTD_BLOCKSIZE_MAX)
-    res = native.decode_frame_body(
-        np.frombuffer(src, np.uint8)[hdr.header_size:], cap)
+    body = np.frombuffer(src, np.uint8)[hdr.header_size:]
+    res = (native.decode_frame_body(body, cap) if ddict is None
+           else ddict.decode_frame_body(body, cap))
     if res is None:
         raise ZstdError(ZstdErrorCode.corruption_detected,
                         "frame body corrupt")
@@ -177,7 +187,7 @@ def decompress(src: bytes) -> bytes:
             check(len(src) - pos >= 8 + size, ZstdErrorCode.srcSize_wrong)
             pos += 8 + size
             continue
-        content, consumed = _decode_frame(mv[pos:])
+        content, consumed = decode_frame(mv[pos:])
         outputs.append(content)
         pos += consumed
     return b"".join(o.tobytes() for o in outputs)
@@ -185,8 +195,8 @@ def decompress(src: bytes) -> bytes:
 
 class Decompressor:
     """The port's Decompressor: the reference's ``unwrap_many_device`` on a
-    torch device, and its ``load_dictionary`` (dictionary frames are not
-    ported: with one loaded, ``unwrap_many_device`` raises)."""
+    torch device, and its ``load_dictionary``, whose dictionary
+    ``unwrap_many_device`` decodes against."""
 
     def __init__(self):
         self._dict = None
@@ -207,10 +217,9 @@ class Decompressor:
         device-planned single-block frames in frame order, lengths the
         per-row content sizes, host_results a dict frame_idx -> bytes for
         host-routed frames (uint8 device tensors for multi-block frames).
-        A loaded dictionary raises NotImplementedError."""
+        With a loaded dictionary every frame decodes against it: its
+        content tail as the shared window, its tables and repcodes as the
+        starting entropy (``decode_batch_device``'s ``ddict``)."""
         from .device_pipeline import decode_batch_device
 
-        if self._dict is not None:
-            raise NotImplementedError(
-                "dictionary frames are not ported to zstdsharp_tpu_torch yet")
-        return decode_batch_device(frames, device)
+        return decode_batch_device(frames, device, ddict=self._dict)

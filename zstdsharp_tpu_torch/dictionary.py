@@ -5,7 +5,8 @@ ZstdDecompress.cs:1770).
 Wire format: [magic 0xEC30A437][dictID u32][HUF weights][OF NCount]
 [ML NCount][LL NCount][rep0..rep2 u32][content].  Input without the magic,
 or under 8 bytes, is raw content.  The port has no dictionary encoder, so
-no encoder tables are built.
+no encoder tables are built.  ``ParsedDict.native`` opens the engine's
+decompression dictionary on the same bytes.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import constants as C
+from . import native
 from .decode.block import EntropyState
 from .entropy import fse, huffman
 from .errors import ZstdErrorCode, check
@@ -26,6 +28,10 @@ class ParsedDict:
     content: np.ndarray
     entropy: EntropyState | None  # decode-side tables; None for raw content
     raw: bytes = b""
+
+    def native(self) -> native.NativeDDict:
+        """The engine's handle of this dictionary; the caller closes it."""
+        return native.NativeDDict(self.raw, len(self.content), self.dict_id)
 
 
 def parse_dictionary(data: bytes) -> ParsedDict:

@@ -7,6 +7,8 @@ zstdsharp_tpu/native.py).  It binds only the entry points the port calls:
 * whole-frame codecs: ``compress_exact``, ``compress_frame_body``,
   ``NativeEStream`` (the streaming encoder, for frames the whole-frame
   routes decline), ``decode_frame_body``, ``dp_frame_body``;
+* the decompression dictionary ``NativeDDict`` (``zt_ddict_*``,
+  ``zt_decode_frame_body_ddict``, ``zt_decompress_many_ddict``);
 * the block-level decoders the planner's host route uses:
   ``huf_decode_stream``, ``fse_decode_sequences``;
 * ``xxh64``.
@@ -151,6 +153,12 @@ def get_lib() -> ctypes.CDLL:
             "zt_estream_free": (None, [vp]),
             "zt_estream_pending": (i64, [vp]),
             "zt_compress_exact": (i64, [u8p, i64, i32, i32, u8p, i64]),
+            "zt_ddict_create": (vp, [u8p, i64]),
+            "zt_ddict_free": (None, [vp]),
+            "zt_decode_frame_body_ddict": (i64, [u8p, i64, vp, u8p, i64,
+                                                 i64p]),
+            "zt_decompress_many_ddict": (
+                i64, [vp, u8p, i64p, i64, ctypes.c_uint32, u8p, i64, i64p]),
         }
         ctxp = ctypes.POINTER(DPlaneCtx)
         sigs.update({
@@ -325,6 +333,91 @@ def decode_frame_body(src, out_cap: int):
     if produced < 0:
         return None
     return out[:produced], int(consumed[0])
+
+
+class NativeDDict:
+    """The engine's decompression dictionary (DDictC, the ZSTD_DDict role):
+    the content as history and the entropy tables loaded once.  Counterpart
+    of the reference's NativeDDict; `content_len` and `dict_id` are the
+    parsed dictionary's (the engine keeps the content after the tables).
+
+    The handle keeps a per-call entropy scratch, so every call on it holds
+    the object's lock.  ``close`` (or leaving a ``with`` block) frees the
+    handle; a closed dictionary raises."""
+
+    def __init__(self, dict_raw: bytes, content_len: int, dict_id: int = 0):
+        self._lib = get_lib()
+        self._mtx = threading.Lock()
+        self.content_len = content_len
+        self.dict_id = dict_id
+        raw = _u8(bytes(dict_raw))
+        self._h = self._lib.zt_ddict_create(_ptr(raw, ctypes.c_uint8),
+                                            len(raw))
+        if not self._h:
+            raise RuntimeError("zt_ddict_create refused the dictionary")
+
+    def _handle(self):
+        if not self._h:
+            raise ValueError("NativeDDict is closed")
+        return self._h
+
+    def decode_frame_body(self, src, content_cap: int):
+        """One frame body (after the header, before the checksum) against
+        the dictionary.  Returns (content uint8 array, bytes consumed), or
+        None if corrupt."""
+        arr = _u8(src)
+        cap = self.content_len + content_cap + 64
+        out = np.empty(cap, dtype=np.uint8)
+        consumed = np.zeros(1, dtype=np.int64)
+        with self._mtx:
+            size = self._lib.zt_decode_frame_body_ddict(
+                _ptr(arr, ctypes.c_uint8), len(arr), self._handle(),
+                _ptr(out, ctypes.c_uint8), cap,
+                _ptr(consumed, ctypes.c_int64))
+        if size < 0:
+            return None
+        return (out[self.content_len:self.content_len + size],
+                int(consumed[0]))
+
+    def decompress_many(self, frames: list[bytes]) -> list[bytes] | None:
+        """Every frame's content from one native call (the host bar for a
+        dictionary batch; checksums are verified natively), or None when
+        a frame is outside the call's reach: no content size, another
+        dictionary's ID, a corrupt body or a bad checksum (``decode_frame``
+        names the error)."""
+        concat = np.frombuffer(b"".join(frames), dtype=np.uint8)
+        flens = np.array([len(f) for f in frames], dtype=np.int64)
+        cap = int(len(concat) * 64 + (1 << 20))
+        out = np.empty(cap, dtype=np.uint8)
+        out_lens = np.zeros(len(frames), dtype=np.int64)
+        with self._mtx:
+            total = self._lib.zt_decompress_many_ddict(
+                self._handle(), _ptr(concat, ctypes.c_uint8),
+                _ptr(flens, ctypes.c_int64), len(frames), self.dict_id,
+                _ptr(out, ctypes.c_uint8), cap,
+                _ptr(out_lens, ctypes.c_int64))
+        if total < 0:
+            return None
+        ends = np.cumsum(out_lens).tolist()
+        return [out[e - n:e].tobytes() for e, n in zip(ends, out_lens.tolist())]
+
+    def close(self) -> None:
+        with self._mtx:
+            if self._h:
+                self._lib.zt_ddict_free(self._h)
+                self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 def xxh64(data, seed: int = 0) -> int:
