@@ -83,7 +83,23 @@ Phases, each printed on its own line:
      and the engine's ``NativeDDict.decompress_many`` on the same frames;
  14. ``ops.ldm.ldm_anchor_mask`` over the 8 MB corpus prefix on the card
      equals its CPU run; prints its time (torch ops, no hand kernel);
- 15. one more level-1 stream compress of phase 9's input under
+ 15. public API, through ``import zstdsharp_tpu_torch as z`` only: (a) the
+     json set made on this host: ``z.train_dictionary`` on its first
+     1,000 records equals the committed dictionary, ``z.Compressor(3)``
+     with it frames the 5,000 records into the committed frames, and
+     ``z.Decompressor().unwrap_many_device(frames)`` with no device
+     decodes them byte-exact on cuda:0 (the FSE kernel launched), as does
+     ``unwrap_many`` on the host; (b) ``Compressor(9).wrap_many`` over
+     phase 4's 256 x 24 KB records, then ``unwrap_many_device()``:
+     byte-exact, both decode kernels launched, the host-routed count
+     printed; (c) a level-3 ``CompressionStream`` with a checksum over the
+     8 MB prefix, written in chunks of 1, 7, 4,096 and 65,536 bytes in
+     turn and flushed every 1 MB, read back by ``DecompressionStream`` in
+     reads of 7 and 65,536 bytes and by ``decompress``, and ``compress``
+     with ``CCtxParams(compression_level=3, n_workers=4)`` decoded by
+     ``decompress(..., n_workers=4)``; prints (not asserted) each call's
+     time and the streams' MB/s;
+ 16. one more level-1 stream compress of phase 9's input under
      torch.profiler: device events, the device's busy share (the union of
      their intervals over the call's wall time) and the time of the
      copies and sorts.  It runs last so that no timed phase follows a
@@ -782,6 +798,123 @@ def _ldm_phase(data, dev, card):
           f"{card}")
 
 
+def _api_phase(recs, data, card):
+    """Phase 15: the public API of ``zstdsharp_tpu_torch`` on the card
+    host.  Returns each decode kernel's launches in its counted runs."""
+    import io
+
+    import torch
+
+    import zstdsharp_tpu_torch as z
+    from zstdsharp_tpu_torch.encode.params import CCtxParams
+
+    sets = _dict_sets()
+    d0, frames0, jrecs = sets.load("json")
+    launches = {"huf_decode": 0, "fse_decode": 0}
+    cuda0 = torch.device("cuda", 0)
+
+    def counted(dec, frames):
+        _reset_counts()
+        t = time.perf_counter()
+        outs, lens, host = dec.unwrap_many_device(frames)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        counts = _counts()
+        for k in launches:
+            launches[k] += counts[k]
+        _check(all(o.device == cuda0 for o in outs)
+               and all(v.device == cuda0 for v in host.values()
+                       if not isinstance(v, bytes)),
+               "unwrap_many_device() with no device decodes on cuda:0")
+        return _frame_bytes(len(frames), outs, lens, host), host, counts, s
+
+    # (a) the json set, made on this host
+    t = time.perf_counter()
+    d = z.train_dictionary(jrecs[:1000], sets.JSON_DICT_SIZE)
+    train_s = time.perf_counter() - t
+    _check(d == d0, "train_dictionary equals the committed dictionary")
+    comp = z.Compressor(level=sets.JSON_LEVEL)
+    comp.load_dictionary(d)
+    t = time.perf_counter()
+    frames = comp.wrap_many(jrecs)
+    wrap_s = time.perf_counter() - t
+    _check(frames == frames0, "wrap_many equals the committed frames")
+    dec = z.Decompressor()
+    dec.load_dictionary(d)
+    got, _, counts_a, dev_s = counted(dec, frames)
+    _check(got == jrecs, "dictionary frames decode byte-exact on the card")
+    _check(counts_a["fse_decode"] > 0, f"FSE kernel launched {counts_a}")
+    t = time.perf_counter()
+    _check(dec.unwrap_many(frames) == jrecs, "unwrap_many on the host")
+    host_s = time.perf_counter() - t
+    print(f"phase public API (a): json set made here: train_dictionary "
+          f"{train_s * 1e3:.1f} ms == committed ({len(d)} B), wrap_many "
+          f"{wrap_s * 1e3:.1f} ms == committed {len(frames)} frames, "
+          f"unwrap_many_device() {dev_s * 1e3:.1f} ms byte-exact on cuda:0 "
+          f"(launches {counts_a}), unwrap_many {host_s * 1e3:.1f} ms on the "
+          f"host, on {card}")
+
+    # (b) a batch without a dictionary
+    t = time.perf_counter()
+    frames9 = z.Compressor(level=9).wrap_many(recs)
+    wrap9_s = time.perf_counter() - t
+    got, host, counts_b, dev9_s = counted(z.Decompressor(), frames9)
+    _check(got == recs, "level-9 frames decode byte-exact on the card")
+    _check(all(counts_b[k] > 0 for k in launches),
+           f"both decode kernels launched {counts_b}")
+    routed = sum(isinstance(v, bytes) for v in host.values())
+    print(f"phase public API (b): Compressor(9).wrap_many of {len(recs)} x "
+          f"{REC_SIZE} B {wrap9_s * 1e3:.1f} ms, unwrap_many_device() "
+          f"{dev9_s * 1e3:.1f} ms byte-exact, host-routed {routed}, "
+          f"launches {counts_b}, on {card}")
+
+    # (c) streams and the multi-frame compress
+    sink = io.BytesIO()
+    t = time.perf_counter()
+    cs = z.CompressionStream(sink, level=3, checksum=True)
+    pos = writes = flushes = flushed = 0
+    while pos < len(data):
+        n = (1, 7, 4096, 65_536)[writes % 4]
+        cs.write(data[pos:pos + n])
+        pos += n
+        writes += 1
+        if pos - flushed >= 1 << 20:
+            cs.flush()
+            flushed = pos
+            flushes += 1
+    cs.close()
+    cstream_s = time.perf_counter() - t
+    stream = sink.getvalue()
+    t = time.perf_counter()
+    ds = z.DecompressionStream(io.BytesIO(stream))
+    parts, k = [], 0
+    while True:
+        b = ds.read((7, 65_536)[k % 2])
+        k += 1
+        if not b:
+            break
+        parts.append(b)
+    dstream_s = time.perf_counter() - t
+    _check(b"".join(parts) == data, "DecompressionStream returns the prefix")
+    _check(z.decompress(stream) == data, "decompress of the stream")
+    t = time.perf_counter()
+    multi = z.compress(data, params=CCtxParams(compression_level=3,
+                                               n_workers=4))
+    mc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    _check(z.decompress(multi, n_workers=4) == data,
+           "compress(n_workers=4) decodes with decompress(n_workers=4)")
+    md_s = time.perf_counter() - t
+    mb = len(data) / 1e6
+    print(f"phase public API (c): CompressionStream L3+checksum {len(data)} B"
+          f" in {writes} writes, {flushes} flushes -> {len(stream)} B "
+          f"{mb / cstream_s:.1f} MB/s, DecompressionStream (reads of 7 and "
+          f"65536 B) {mb / dstream_s:.1f} MB/s; compress(n_workers=4) "
+          f"{mb / mc_s:.1f} MB/s -> {len(multi)} B, decompress(n_workers=4) "
+          f"{mb / md_s:.1f} MB/s; host CPU, on {card}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "zstdsharp_tpu_torch").is_dir():
         print("chip_smoke.py: zstdsharp_tpu_torch/ not found beside this "
@@ -891,6 +1024,8 @@ def main() -> int:
     for k, v in _dict_phases(big, dev, card).items():
         launches[k] += v
     _ldm_phase(data, dev, card)
+    for k, v in _api_phase(recs, data, card).items():
+        launches[k] += v
     _stream_profile(big, dev, card)
 
     kernels = [{"name": name, "route": "cuda",

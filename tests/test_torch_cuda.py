@@ -373,13 +373,37 @@ def test_dictionary_set_on_card_equals_cpu(cuda, name):
     assert all(o.device.type == "cuda" for o in outs)
     assert all(v.device.type == "cuda" for v in host.values())
     assert _bytes_of(len(frames), outs, lens, host) == recs
-    c_outs, c_lens, c_host = dp.decode_batch_device(frames, "cpu",
-                                                    ddict=dec._dict)
+    c_outs, c_lens, c_host = dp.decode_batch_device(
+        frames, "cpu", ddict=dec._dict._parsed)
     assert np.array_equal(lens, c_lens) and len(outs) == len(c_outs)
     for o, c in zip(outs, c_outs):
         assert torch.equal(o.cpu(), c)
     assert set(host) == set(c_host)
     assert all(torch.equal(v.cpu(), c_host[k]) for k, v in host.items())
+
+
+def test_public_api_default_device_and_trainer_on_card(cuda):
+    """The port's public names on the card host: its trainer and
+    ``wrap_many`` reproduce the committed json set, and
+    ``unwrap_many_device`` with no device decodes it on the card."""
+    import zstdsharp_tpu_torch as z
+
+    sets = _dict_sets()
+    d, frames, recs = sets.load("json")
+    got = z.train_dictionary(recs[:1000], sets.JSON_DICT_SIZE)
+    assert got == d
+    c = z.Compressor(level=sets.JSON_LEVEL)
+    c.load_dictionary(got)
+    assert c.wrap_many(recs) == frames
+    dec = z.Decompressor()
+    dec.load_dictionary(got)
+    outs, lens, host = dec.unwrap_many_device(frames)
+    torch.cuda.synchronize()
+    assert outs and all(o.device == torch.device("cuda", 0) for o in outs)
+    assert all(not isinstance(v, bytes) and v.device.type == "cuda"
+               for v in host.values())
+    assert _bytes_of(len(frames), outs, lens, host) == recs
+    assert dec.unwrap_many(frames) == recs
 
 
 def test_dictionary_kernels_equal_plain(cuda):

@@ -242,7 +242,7 @@ def test_dictionary_raises_not_implemented():
     assert not host and outs[0].device == CPU
     assert _bytes_of(len(frames), outs, lens, host) == recs
     results, stats = dp.decode_batch_device(frames, CPU, materialize=True,
-                                            ddict=dec._dict)
+                                            ddict=dec._dict._parsed)
     assert results == recs
     assert stats == {"device_frames": len(recs), "host_frames": 0}
 

@@ -505,7 +505,8 @@ def test_load_dictionary_raises_as_reference(name, data):
 def test_load_dictionary_keeps_parsed_and_none_drops():
     dec = frame.Decompressor()
     dec.load_dictionary(_DICT)
-    assert isinstance(dec._dict, dictionary.ParsedDict)
+    assert isinstance(dec._dict, dictionary.ZstdCompressionDict)
+    assert isinstance(dec._dict._parsed, dictionary.ParsedDict)
     assert dec._dict.dict_id == rdict.parse_dictionary(_DICT).dict_id
     dec.load_dictionary(None)
     assert dec._dict is None

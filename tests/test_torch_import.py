@@ -35,7 +35,11 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "from zstdsharp_tpu_torch.ops import common, device_encode, histogram\n"
         "from zstdsharp_tpu_torch.ops import matcher\n"
         "from zstdsharp_tpu_torch.parallel import pipeline\n"
-        "from zstdsharp_tpu_torch import graft_entry\n"
+        "from zstdsharp_tpu_torch import graft_entry, dictionary, streaming\n"
+        "from zstdsharp_tpu_torch.decode import streaming as dstreaming\n"
+        "from zstdsharp_tpu_torch.encode import block, params, seqstore\n"
+        "from zstdsharp_tpu_torch.encode import sequences_api\n"
+        "from zstdsharp_tpu_torch.utils import trace, xxhash\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised'\n"
         "assert _build._lib is None, 'kernels loaded at import'\n"
@@ -61,6 +65,54 @@ _REF_IMPORT = re.compile(r"^\s*(from|import)\s+zstdsharp_tpu(\.|\s|$)", re.M)
 def _port_files():
     files = sorted((ROOT / "zstdsharp_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"]
+
+
+_OPTIONAL_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(xxhash|zstandard)(\.|\s|$)", re.M)
+
+
+def test_sources_import_no_xxhash_or_zstandard():
+    """The GPU host has neither module: the port hashes through its engine
+    and never imports the oracle."""
+    bad = [str(f.relative_to(ROOT)) for f in _port_files()
+           if _OPTIONAL_IMPORT.search(f.read_text())]
+    assert not bad, f"files importing xxhash or zstandard: {bad}"
+
+
+def test_public_api_loads_no_reference_module():
+    """``import zstdsharp_tpu_torch as z``, then its public names: every
+    name resolves, a compress / decompress round trip and a stream run,
+    and neither JAX nor any module of the JAX package is loaded."""
+    code = textwrap.dedent("""\
+        import io, sys
+        import zstdsharp_tpu_torch as z
+        for name in z.__all__:
+            getattr(z, name)
+        data = b"public api " * 5000
+        f = z.compress(data, 3)
+        assert z.decompress(f) == data
+        sink = io.BytesIO()
+        s = z.CompressionStream(sink, level=3, checksum=True)
+        s.write(data)
+        s.close()
+        r = z.DecompressionStream(io.BytesIO(sink.getvalue()))
+        assert r.read() == data
+        d = z.train_dictionary([b"rec %d" % i * 9 for i in range(300)], 1024)
+        c = z.Compressor(3)
+        c.load_dictionary(d)
+        dec = z.Decompressor()
+        dec.load_dictionary(d)
+        assert dec.unwrap_many(c.wrap_many([b"rec 7" * 9])) == [b"rec 7" * 9]
+        bad = sorted(k for k in sys.modules
+                     if k == "zstdsharp_tpu" or k.startswith("zstdsharp_tpu.")
+                     or k in ("jax", "xxhash", "zstandard"))
+        assert not bad, bad
+        print("ok")
+        """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_reference_import_pattern():

@@ -1,8 +1,12 @@
 """Dictionary frames for the torch port's card tests and chip_smoke.py.
 
 The GPU host has neither ``zstandard`` nor the JAX package, so the
-dictionaries and frames are made here once and committed beside this file;
+dictionaries and frames were made once and committed beside this file;
 the records are regenerated from their recipe wherever they are needed.
+The port now reproduces set ``json`` on the GPU host by itself
+(``zstdsharp_tpu_torch.train_dictionary`` and ``Compressor.wrap_many``
+give the committed bytes, checked there by chip_smoke.py); set ``corpus``
+needs ``zstandard``'s trainer and encoder.
 
 * ``json`` -- the bench's dictionary-batch configuration (bench.py, "dict
   batch"): 5,000 JSON records, a 4,096-byte dictionary trained on the

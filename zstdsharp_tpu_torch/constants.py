@@ -20,14 +20,30 @@ ZSTD_MAGIC_SKIPPABLE_START = 0x184D2A50
 ZSTD_MAGIC_SKIPPABLE_MASK = 0xFFFFFFF0
 ZSTD_MAGIC_DICTIONARY = 0xEC30A437
 
+ZSTD_FRAMEHEADERSIZE_PREFIX = 5  # bytes needed to probe the header size
 ZSTD_FRAMEHEADERSIZE_MIN = 6
+ZSTD_FRAMEHEADERSIZE_MAX = 18
 ZSTD_BLOCKSIZELOG_MAX = 17
 ZSTD_BLOCKSIZE_MAX = 1 << ZSTD_BLOCKSIZELOG_MAX  # 128 KiB
+ZSTD_BLOCKHEADERSIZE = 3
 
+# Parameter bounds (ZSTD_cParam_getBounds)
 ZSTD_WINDOWLOG_MAX = 31
+ZSTD_WINDOWLOG_MIN = 10
 ZSTD_WINDOWLOG_LIMIT_DEFAULT = 27
 ZSTD_WINDOWLOG_ABSOLUTEMIN = 10
+ZSTD_HASHLOG_MAX = 30
 ZSTD_HASHLOG_MIN = 6
+ZSTD_CHAINLOG_MAX = 30
+ZSTD_CHAINLOG_MIN = 6
+ZSTD_SEARCHLOG_MAX = ZSTD_WINDOWLOG_MAX - 1
+ZSTD_SEARCHLOG_MIN = 1
+ZSTD_MINMATCH_MAX = 7
+ZSTD_MINMATCH_MIN = 3
+ZSTD_TARGETLENGTH_MAX = ZSTD_BLOCKSIZE_MAX
+ZSTD_TARGETLENGTH_MIN = 0
+
+MINMATCH = 3
 
 # Frame-content-size / dict-id field sizes, indexed by the 2-bit
 # descriptor fields of the frame-header byte.

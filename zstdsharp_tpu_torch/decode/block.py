@@ -8,6 +8,9 @@ ZSTD_decodeSequence:2360).
 The planner decodes here what the device kernels do not take: the sequence
 sections of multi-block frames (so the repcode and repeat-table chains
 resolve at plan time) and oversized literal or sequence sections.
+``decode_block`` (with ``execute_sequences``, ZSTD_execSequence:2187)
+decodes a whole block for the host frame decoder's dictionary route and
+the streaming decoder's dictionary frames.
 """
 
 from __future__ import annotations
@@ -279,3 +282,79 @@ def decode_sequences(payload: bytes, nb_seq: int, ll: fse.FseDTable,
           "sequence bitstream not fully consumed")
     rep[0], rep[1], rep[2] = r0, r1, r2
     return lls, mls, ofs
+
+
+# ---------------------------------------------------------------------------
+# Sequence execution (LZ copy)
+# ---------------------------------------------------------------------------
+
+
+def execute_sequences(out: np.ndarray, out_pos: int, prefix_start: int,
+                      literals: np.ndarray, lls: np.ndarray, mls: np.ndarray,
+                      ofs: np.ndarray) -> int:
+    """ZSTD_execSequence:2187 over a whole block.
+
+    `out` is the frame-wide output buffer; `out_pos` the write cursor;
+    `prefix_start` the first valid history byte (0 unless dictionary content
+    was virtually prepended).  Returns the new out_pos.
+    """
+    if len(lls) > 4:
+        res = native.execute_sequences(out, out_pos, prefix_start, literals,
+                                       lls, mls, ofs)
+        if res is None:
+            raise ZstdError(ZstdErrorCode.corruption_detected,
+                            "sequence execution failed (offset/window)")
+        return res
+
+    lit_pos = 0
+    n = len(lls)
+    lls_l = lls.tolist()
+    mls_l = mls.tolist()
+    ofs_l = ofs.tolist()
+    for i in range(n):
+        ll = lls_l[i]
+        ml = mls_l[i]
+        offset = ofs_l[i]
+        if ll:
+            out[out_pos : out_pos + ll] = literals[lit_pos : lit_pos + ll]
+            out_pos += ll
+            lit_pos += ll
+        check(offset <= out_pos - prefix_start, ZstdErrorCode.corruption_detected,
+              "offset beyond window")
+        start = out_pos - offset
+        if offset >= ml:
+            out[out_pos : out_pos + ml] = out[start : start + ml]
+            out_pos += ml
+        else:
+            # Overlapped copy: doubling pattern replication.
+            remaining = ml
+            avail = offset
+            while remaining > 0:
+                chunk = min(avail, remaining)
+                out[out_pos : out_pos + chunk] = out[start : start + chunk]
+                out_pos += chunk
+                remaining -= chunk
+                avail += chunk
+    # Trailing literals.
+    rest = len(literals) - lit_pos
+    if rest:
+        out[out_pos : out_pos + rest] = literals[lit_pos:]
+        out_pos += rest
+    return out_pos
+
+
+def decode_block(src: bytes, entropy: EntropyState, out: np.ndarray,
+                 out_pos: int, prefix_start: int = 0) -> int:
+    """Decode one compressed block into `out` at `out_pos`; returns new pos
+    (ZSTD_decompressBlock_internal:3090)."""
+    literals, consumed = decode_literals(src, entropy)
+    nb_seq, ll, of, ml, n = decode_sequence_headers(src[consumed:], entropy)
+    consumed += n
+    if nb_seq == 0:
+        end = out_pos + len(literals)
+        out[out_pos:end] = literals
+        return end
+    lls, mls, ofs = decode_sequences(src[consumed:], nb_seq, ll, of, ml, entropy.rep)
+    total = int(lls.sum()) + int(mls.sum()) + (len(literals) - int(lls.sum()))
+    check(out_pos + total <= len(out), ZstdErrorCode.dstSize_tooSmall)
+    return execute_sequences(out, out_pos, prefix_start, literals, lls, mls, ofs)

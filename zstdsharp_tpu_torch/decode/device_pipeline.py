@@ -45,6 +45,7 @@ from ..entropy import huffman
 from ..errors import ZstdError, ZstdErrorCode
 from ..ops import device_fse as df
 from ..ops import device_huf as dh
+from ..ops._launch import resolve_device
 from ..ops.execseq import make_executor
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
@@ -890,9 +891,11 @@ def _window_rows(tail: bytes, B: int, device) -> torch.Tensor:
     return row.to(device).expand(B, W)
 
 
-def decode_batch_device(frames, device, materialize: bool = False,
+def decode_batch_device(frames, device="cuda", materialize: bool = False,
                         ddict=None, timings: dict | None = None):
-    """Decode a batch of frames on `device` (a torch device or its name).
+    """Decode a batch of frames on `device` (a torch device or its name;
+    the card unless the caller names another, and without a card the
+    default raises).
 
     Returns (outputs, lengths, host_results): outputs is a list of
     per-exec-chunk uint8 tensors [EXEC_LANES, O] on `device` whose rows map
@@ -911,7 +914,7 @@ def decode_batch_device(frames, device, materialize: bool = False,
     stage and the stage's wall seconds are stored under "plan", "host"
     (host-routed frames), "huf", "fse", "exec" and "mb_exec".
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     clock = [time.perf_counter()]
 
     def tick(stage):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops._launch import resolve_device
 from ..ops.device_encode import encode_frames_device, seq_budget, word_budget
 from .frame import compress
 
@@ -35,9 +36,11 @@ def _bucket(n: int) -> int:
     return -1
 
 
-def compress_batch_device(records, device, materialize: bool = False,
+def compress_batch_device(records, device="cuda", materialize: bool = False,
                           hash_log: int = 15, timings: dict | None = None):
-    """Compress a batch of records on `device` (a torch device or its name).
+    """Compress a batch of records on `device` (a torch device or its
+    name; the card unless the caller names another, and without a card
+    the default raises).
 
     Returns (chunks, host_results): chunks is a list of (record_indices,
     rows [LANES, N+16] uint8, lens [LANES] int32), both tensors on
@@ -48,7 +51,7 @@ def compress_batch_device(records, device, materialize: bool = False,
     timings: when a dict is given, each phase's wall seconds are added
     under "parse", "tables" and "assembly" (``encode_frames_device``).
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     host_results = {}
     by_bucket: dict = {}
     for ri, rec in enumerate(records):

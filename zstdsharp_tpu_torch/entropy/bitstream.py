@@ -1,5 +1,6 @@
-"""zstd bitstreams: the port's copy of the BitReader and BitWriter of
-zstdsharp_tpu/entropy/bitstream.py (reference: Unsafe/Bitstream.cs).
+"""zstd bitstreams: the port's copy of the BitReader, BitWriter and
+``pack_bits`` of zstdsharp_tpu/entropy/bitstream.py (reference:
+Unsafe/Bitstream.cs).
 
 zstd entropy payloads are *backward* bitstreams: the encoder appends fields
 at increasing little-endian bit positions (BIT_addBits) and closes with a
@@ -88,3 +89,40 @@ class BitWriter:
             self._acc = 0
             self._nbits = 0
         return bytes(self._out)
+
+
+def pack_bits(values: np.ndarray, nbits: np.ndarray) -> bytes:
+    """Vectorized backward-bitstream packer (the TPU reformulation).
+
+    Equivalent to ``BitWriter().add(v_i, n_i) for i in order; close()`` but
+    computed as: exclusive prefix-scan of nbits -> per-field word scatter.
+    Fields must satisfy nbits <= 56.
+    """
+    values = np.ascontiguousarray(values, dtype=np.uint64)
+    nbits = np.ascontiguousarray(nbits, dtype=np.uint64)
+    assert values.shape == nbits.shape
+    if values.size == 0:
+        return b"\x01"
+    end = np.cumsum(nbits)
+    offsets = end - nbits  # exclusive scan
+    total = int(end[-1]) + 1  # + end mark
+    nwords = (total + 63) // 64 + 1
+
+    mask = (np.uint64(1) << nbits) - np.uint64(1)
+    vals = values & mask
+    widx = (offsets >> np.uint64(6)).astype(np.int64)
+    bidx = offsets & np.uint64(63)
+
+    words = np.zeros(nwords, dtype=np.uint64)
+    lo = (vals << bidx) & np.uint64(_U64_MASK)
+    np.bitwise_or.at(words, widx, lo)
+    # Spill into the next word where bidx + nbits > 64.
+    spill = bidx + nbits > 64
+    if spill.any():
+        hi_shift = (np.uint64(64) - bidx[spill]) & np.uint64(63)
+        hi = vals[spill] >> hi_shift
+        np.bitwise_or.at(words, widx[spill] + 1, hi)
+    # End mark.
+    words[(total - 1) // 64] |= np.uint64(1) << np.uint64((total - 1) & 63)
+    out = words.view(np.uint8)[: (total + 7) // 8]
+    return out.tobytes()

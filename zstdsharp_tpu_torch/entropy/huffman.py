@@ -9,7 +9,10 @@ host route for literal sections the kernel does not take).
 Encode: tree build (two-queue merge over count-sorted symbols,
 height-limited to <= 12 bits like HUF_setMaxHeight) and weight
 serialization (FSE-compressed or raw nibbles, HUF_writeCTable_wksp), for
-the device encoder's literal tables.
+the device encoder's literal tables; the encode table rebuilt from
+weights (a dictionary's), and 1X/4X bitstream emission for the host
+block encoder (the engine's ``huf_encode_stream``, else the prefix-scan
+packer ``bitstream.pack_bits``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from ..constants import HUF_SYMBOLVALUE_MAX, HUF_TABLELOG_ABSOLUTEMAX, HUF_TABLE
 from .. import native
 from ..errors import ZstdError, ZstdErrorCode, check
 from . import fse
-from .bitstream import BitReader
+from .bitstream import BitReader, pack_bits
 
 # ---------------------------------------------------------------------------
 # Weights (shared by encode/decode)
@@ -292,6 +295,30 @@ def build_ctable(counts: np.ndarray, max_symbol: int,
     return HufCTable(table_log, max_symbol, lengths.astype(np.uint8), code)
 
 
+def ctable_from_weights(weights: np.ndarray, table_log: int) -> HufCTable:
+    """Rebuild the canonical encode table from decoded weights
+    (HUF_readCTable semantics) — used for dictionary CTables and
+    repeat-mode encoding."""
+    max_symbol = len(weights) - 1
+    w = weights.astype(np.int64)
+    nb = np.where(w > 0, table_log + 1 - w, 0)
+    nb_per_rank = np.bincount(nb[nb > 0], minlength=table_log + 2)
+    val_per_rank = np.zeros(table_log + 2, dtype=np.int64)
+    mn = 0
+    for l in range(table_log, 0, -1):
+        val_per_rank[l] = mn
+        mn += nb_per_rank[l]
+        mn >>= 1
+    code = np.zeros(max_symbol + 1, dtype=np.uint16)
+    fill = val_per_rank.copy()
+    for s in range(max_symbol + 1):
+        l = int(nb[s])
+        if l:
+            code[s] = fill[l]
+            fill[l] += 1
+    return HufCTable(table_log, max_symbol, nb.astype(np.uint8), code)
+
+
 def write_ctable(ct: HufCTable) -> bytes:
     """Serialize the table as weights (HUF_writeCTable_wksp)."""
     # weight = huffLog + 1 - nbBits for present symbols; 0 for absent.
@@ -326,3 +353,38 @@ def write_ctable(ct: HufCTable) -> bytes:
     padded = np.append(wt, np.uint8(0))
     pairs = (padded[0 : len(wt) : 2].astype(np.uint16) << 4) | padded[1 : len(wt) + 1 : 2]
     return bytes([128 + ct.max_symbol - 1]) + pairs.astype(np.uint8).tobytes()
+
+
+def encode_1x(symbols: np.ndarray, ct: HufCTable) -> bytes:
+    """1-stream encode: symbols consumed back-to-front through the
+    prefix-scan bit packer (HUF_compress1X_usingCTable_internal_body:1056)."""
+    if len(symbols) > 64:
+        code = np.zeros(256, dtype=np.uint16)
+        nb = np.zeros(256, dtype=np.uint8)
+        code[: ct.max_symbol + 1] = ct.code
+        nb[: ct.max_symbol + 1] = ct.nb_bits
+        out = native.huf_encode_stream(symbols, code, nb)
+        if out is not None:
+            return out
+    rev = symbols[::-1].astype(np.int64)
+    values = ct.code[rev].astype(np.uint64)
+    nbits = ct.nb_bits[rev].astype(np.uint64)
+    return pack_bits(values, nbits)
+
+
+def encode_4x(symbols: np.ndarray, ct: HufCTable) -> bytes | None:
+    """4-stream encode with jump table (HUF_compress4X_usingCTable:1221).
+
+    Returns None if any sub-stream is degenerate (caller falls back).
+    """
+    n = len(symbols)
+    check(n >= 6, ZstdErrorCode.generic, "4X needs >= 6 bytes")
+    seg = (n + 3) // 4
+    parts = [symbols[0:seg], symbols[seg : 2 * seg], symbols[2 * seg : 3 * seg], symbols[3 * seg :]]
+    if len(parts[3]) == 0:
+        return None
+    streams = [encode_1x(p, ct) for p in parts]
+    if any(len(s) == 0 or len(s) > 65535 for s in streams[:3]):
+        return None
+    jump = np.array([len(streams[0]), len(streams[1]), len(streams[2])], dtype="<u2")
+    return jump.tobytes() + b"".join(streams)

@@ -1,10 +1,12 @@
 """Entry points of the port (counterpart of the repository's
 ``__graft_entry__.py``, which stays the JAX reference).
 
-entry(device):        (forward, example_args): the forward step of the
+entry(device="cuda"): (forward, example_args): the forward step of the
                       device pipeline, batched block parse plus code
                       statistics (``parse_block_stats``), on 4 blocks of
-                      32 KiB at hash_log 15, with its arguments on `device`.
+                      32 KiB at hash_log 15, with its arguments on `device`
+                      (the card unless the caller names another; without
+                      a card the default raises).
 dryrun_multichip(n):  the data-parallel codec over an n-entry mesh: levels
                       1/5/19 over >= 8 MB round-tripped through the sharded
                       and the host decoder, the device-plane decode and
@@ -36,11 +38,13 @@ def _example_blocks(n_blocks: int,
     return blocks, n_valid
 
 
-def entry(device):
+def entry(device="cuda"):
     """(forward, example_args): the parse-and-statistics forward step, its
     outputs summarised as the reference's, arguments on `device`."""
+    from .ops._launch import resolve_device
     from .ops.matcher import parse_block_stats
 
+    device = resolve_device(device)
     block_size = 1 << 15
     hash_log = 15
 

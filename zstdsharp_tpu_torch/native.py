@@ -10,8 +10,20 @@ zstdsharp_tpu/native.py).  It binds only the entry points the port calls:
 * the decompression dictionary ``NativeDDict`` (``zt_ddict_*``,
   ``zt_decode_frame_body_ddict``, ``zt_decompress_many_ddict``);
 * the block-level decoders the planner's host route uses:
-  ``huf_decode_stream``, ``fse_decode_sequences``;
+  ``huf_decode_stream``, ``fse_decode_sequences``, and ``execute_sequences``
+  (the LZ copy of the host block decoder);
+* the compression dictionary ``NativeCDict`` (``zt_cdict_*``: prefilled
+  matcher tables, batch and single-frame encode, the trainer's entropy
+  statistics) and the streaming block decoder ``NativeDStream``
+  (``zt_dstream_*``);
+* the host block encoder's kernels: ``fast_find_matches``,
+  ``lazy_find_matches``, ``encode_sequences``, ``huf_encode_stream``;
 * ``xxh64``.
+
+The handles that keep per-call scratch in the engine (``NativeCDict``,
+``NativeDDict``, ``NativeDStream``) hold a lock around every call, since
+ctypes releases the GIL and one handle may be shared across threads;
+``close`` (or leaving a ``with`` block) frees them.
 
 Which library is loaded: ``native/libzstdtpu_core.so`` (a tracked file)
 when it is not older than the source; otherwise the source is compiled
@@ -140,6 +152,32 @@ def get_lib() -> ctypes.CDLL:
         i64, i32, vp = ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p
         sigs = {
             "huf_decode_stream": (i64, [u8p, i64, u8p, u8p, i32, u8p, i64]),
+            "execute_sequences": (
+                i64, [u8p, i64, i64, i64, u8p, i64, u32p, u32p, u32p, i64]),
+            "fast_find_matches": (
+                i64, [u8p, i64, i64, i64, i64, i64, i64p, i32, i32, u32p,
+                      u32p, u32p, u32p, i64, i64p, i32]),
+            "lazy_find_matches": (
+                i64, [u8p, i64, i64, i64, i64, i64, i64p, i32, i64p, i64,
+                      i64, i32, i64p, u32p, u32p, u32p, u32p, i64, i64p,
+                      i32]),
+            "encode_sequences": (
+                i64, [u32p, u32p, u32p, u8p, u8p, u8p, u8p, u8p, i64]
+                + [u16p, u32p, i32p, i32] * 3 + [u8p, i64]),
+            "huf_encode_stream": (i64, [u8p, i64, u16p, u8p, u8p, i64]),
+            "zt_cdict_create": (vp, [u8p, i64] + [i32] * 6),
+            "zt_cdict_stats": (i64, [vp, u8p, i64p, i64] + [i64p] * 5),
+            "zt_cdict_free": (None, [vp]),
+            "zt_compress_frame_body_cdict": (i64, [vp, u8p, i64, u8p, i64]),
+            "zt_compress_many_cdict": (
+                i64, [vp, u8p, i64p, i64, ctypes.c_uint32, u8p, i64, i64p]),
+            "zt_estream_preload": (i64, [vp, u8p, i64]),
+            "zt_dstream_new": (vp, []),
+            "zt_dstream_block": (i64, [vp, u8p, i64, u8p, i64, i64, i64]),
+            "zt_dstream_drain": (
+                i64, [vp, u8p, i64, u8p, i64, i64, i64, i64p,
+                      ctypes.POINTER(ctypes.c_int)]),
+            "zt_dstream_free": (None, [vp]),
             "fse_decode_sequences": (
                 i64, [u8p, i64, i64] + [u32p, u8p, u16p, u8p, i32] * 3
                 + [u32p, u32p, u32p, u32p]),
@@ -234,6 +272,119 @@ def fse_decode_sequences(payload: bytes, nb_seq: int, ll, of, ml,
     return tuple(outs)
 
 
+def execute_sequences(out: np.ndarray, out_pos: int, prefix_start: int,
+                      literals: np.ndarray, lls, mls, ofs) -> int | None:
+    """The LZ copy of one block into `out` from `out_pos` (history from
+    `prefix_start`); the new write position, or None on a bad offset."""
+    lit_src = np.ascontiguousarray(literals, np.uint8)
+    lits = np.zeros(len(lit_src) + 16, dtype=np.uint8)  # wildcopy slack
+    lits[:len(lit_src)] = lit_src
+    rc = get_lib().execute_sequences(
+        _ptr(out, ctypes.c_uint8), out_pos, len(out), prefix_start,
+        _ptr(lits, ctypes.c_uint8), len(lit_src),
+        _ptr(np.ascontiguousarray(lls, np.uint32), ctypes.c_uint32),
+        _ptr(np.ascontiguousarray(mls, np.uint32), ctypes.c_uint32),
+        _ptr(np.ascontiguousarray(ofs, np.uint32), ctypes.c_uint32), len(lls))
+    return int(rc) if rc >= 0 else None
+
+
+def fast_find_matches(src: np.ndarray, start: int, end: int, window_start: int,
+                      window_size: int, table: np.ndarray, hash_log: int,
+                      rep: list[int], acceleration: int = 1, mls: int = 4):
+    """The fast strategy's parse of src[start:end] (hash table `table`
+    updated in place, rep[0:2] too): (ll, ml, offBase, last literals), or
+    None when the engine declines."""
+    max_seq = max((end - start) // 3 + 8, 16)
+    outs = [np.empty(max_seq, dtype=np.uint32) for _ in range(3)]
+    rep_arr = np.array(rep[:2], dtype=np.uint32)
+    last_lit = np.zeros(1, dtype=np.int64)
+    n = get_lib().fast_find_matches(
+        _ptr(src, ctypes.c_uint8), len(src), start, end, window_start,
+        window_size, _ptr(table, ctypes.c_int64), hash_log,
+        max(4, min(8, mls)), _ptr(rep_arr, ctypes.c_uint32),
+        *(_ptr(o, ctypes.c_uint32) for o in outs), max_seq,
+        _ptr(last_lit, ctypes.c_int64), acceleration)
+    if n < 0:
+        return None
+    rep[0], rep[1] = int(rep_arr[0]), int(rep_arr[1])
+    return outs[0][:n], outs[1][:n], outs[2][:n], int(last_lit[0])
+
+
+def lazy_find_matches(src: np.ndarray, start: int, end: int, window_start: int,
+                      window_size: int, table: np.ndarray, hash_log: int,
+                      chain: np.ndarray, attempts: int, depth: int,
+                      insert_from: int, rep: list[int], mls: int = 4):
+    """The hash-chain parse (depth 0 greedy, 1 lazy, 2 lazy2) of
+    src[start:end]: (ll, ml, offBase, last literals, next position to
+    insert), or None when the engine declines."""
+    max_seq = max((end - start) // 3 + 8, 16)
+    outs = [np.empty(max_seq, dtype=np.uint32) for _ in range(3)]
+    rep_arr = np.array(rep[:2], dtype=np.uint32)
+    last_lit = np.zeros(1, dtype=np.int64)
+    ins = np.array([insert_from], dtype=np.int64)
+    n = get_lib().lazy_find_matches(
+        _ptr(src, ctypes.c_uint8), len(src), start, end, window_start,
+        window_size, _ptr(table, ctypes.c_int64), hash_log,
+        _ptr(chain, ctypes.c_int64), len(chain), attempts, depth,
+        _ptr(ins, ctypes.c_int64), _ptr(rep_arr, ctypes.c_uint32),
+        *(_ptr(o, ctypes.c_uint32) for o in outs), max_seq,
+        _ptr(last_lit, ctypes.c_int64), max(4, min(8, mls)))
+    if n < 0:
+        return None
+    rep[0], rep[1] = int(rep_arr[0]), int(rep_arr[1])
+    return (outs[0][:n], outs[1][:n], outs[2][:n], int(last_lit[0]),
+            int(ins[0]))
+
+
+def encode_sequences(lls, mls_minus3, obs, llc, mlc, ofc, ll_bits, ml_bits,
+                     ll_ct, of_ct, ml_ct) -> bytes | None:
+    """The interleaved three-state FSE bitstream of a block's sequences
+    (ZSTD_encodeSequences_body), or None when it overflows."""
+    n = len(lls)
+    cap = 32 + n * 16
+    out = np.empty(cap, dtype=np.uint8)
+    holds = []  # the padded arrays live across the native call
+
+    def ctbl(ct):
+        # the engine reads the full alphabet range (36/53/32 entries):
+        # tables built for a smaller max symbol are padded
+        dnb = np.ascontiguousarray(ct.delta_nb_bits, np.uint32)
+        dfs = np.ascontiguousarray(ct.delta_find_state, np.int32)
+        if len(dnb) < 53:
+            dnb = np.concatenate([dnb, np.zeros(53 - len(dnb), np.uint32)])
+        if len(dfs) < 53:
+            dfs = np.concatenate([dfs, np.zeros(53 - len(dfs), np.int32)])
+        st = np.ascontiguousarray(ct.state_table, np.uint16)
+        holds.extend((dnb, dfs, st))
+        return (_ptr(st, ctypes.c_uint16), _ptr(dnb, ctypes.c_uint32),
+                _ptr(dfs, ctypes.c_int32), ct.table_log)
+
+    arrs = [np.ascontiguousarray(a, np.uint32) for a in (lls, mls_minus3, obs)]
+    arrs += [np.ascontiguousarray(a, np.uint8)
+             for a in (llc, mlc, ofc, ll_bits, ml_bits)]
+    size = get_lib().encode_sequences(
+        *(_ptr(a, ctypes.c_uint32) for a in arrs[:3]),
+        *(_ptr(a, ctypes.c_uint8) for a in arrs[3:]),
+        n, *ctbl(ll_ct), *ctbl(of_ct), *ctbl(ml_ct),
+        _ptr(out, ctypes.c_uint8), cap)
+    return None if size < 0 else out[:size].tobytes()
+
+
+def huf_encode_stream(symbols: np.ndarray, code: np.ndarray,
+                      nbits: np.ndarray) -> bytes | None:
+    """One Huffman 1X stream of `symbols` (256-entry code and length
+    tables), or None when it overflows."""
+    symbols = np.ascontiguousarray(symbols, np.uint8)
+    cap = 16 + len(symbols) * 2
+    out = np.empty(cap, dtype=np.uint8)
+    size = get_lib().huf_encode_stream(
+        _ptr(symbols, ctypes.c_uint8), len(symbols),
+        _ptr(np.ascontiguousarray(code, np.uint16), ctypes.c_uint16),
+        _ptr(np.ascontiguousarray(nbits, np.uint8), ctypes.c_uint8),
+        _ptr(out, ctypes.c_uint8), cap)
+    return None if size < 0 else out[:size].tobytes()
+
+
 def dp_frame_body(src: np.ndarray, cand: np.ndarray,
                   block_size: int) -> bytes | None:
     """One-pass frame body (no header or checksum): greedy selection over
@@ -296,10 +447,24 @@ class NativeEStream:
         if not self._h:
             raise RuntimeError("zt_estream_new2 failed")
 
+    def preload(self, dict_data: bytes) -> None:
+        """Seed the context with a dictionary (prefix history, matcher
+        table prefill, repcode and entropy seed); before any feed."""
+        arr = _u8(bytes(dict_data))
+        rc = self._lib.zt_estream_preload(
+            self._h, _ptr(arr, ctypes.c_uint8), len(arr))
+        if rc < 0:
+            raise RuntimeError("zt_estream_preload failed")
+
+    @property
+    def pending(self) -> int:
+        """Input bytes buffered in the context, not yet in a block."""
+        return int(self._lib.zt_estream_pending(self._h))
+
     def feed(self, data: np.ndarray, mode: int) -> bytes:
         """mode: 0 accumulate, 1 flush, 2 end (writes the last block)."""
         arr = _u8(data)
-        total = int(self._lib.zt_estream_pending(self._h)) + len(arr)
+        total = self.pending + len(arr)
         cap = total + (total >> 6) + (1 << 18)
         out = np.empty(cap, dtype=np.uint8)
         size = self._lib.zt_estream_feed(
@@ -335,31 +500,66 @@ def decode_frame_body(src, out_cap: int):
     return out[:produced], int(consumed[0])
 
 
-class NativeDDict:
+class _Handle:
+    """An engine handle that keeps per-call scratch: every call holds the
+    object's lock.  ``close`` (or leaving a ``with`` block) frees it, and
+    a closed handle raises.  ``valid`` is False once closed, or when the
+    engine refused to create it."""
+
+    _free = ""  # the engine's free function
+
+    def __init__(self):
+        self._lib = get_lib()
+        self._mtx = threading.Lock()
+        self._h = None
+
+    @property
+    def valid(self) -> bool:
+        return bool(self._h)
+
+    def _handle(self):
+        if not self._h:
+            raise ValueError(f"{type(self).__name__} is closed")
+        return self._h
+
+    def close(self) -> None:
+        with self._mtx:
+            if self._h:
+                getattr(self._lib, self._free)(self._h)
+                self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeDDict(_Handle):
     """The engine's decompression dictionary (DDictC, the ZSTD_DDict role):
     the content as history and the entropy tables loaded once.  Counterpart
     of the reference's NativeDDict; `content_len` and `dict_id` are the
     parsed dictionary's (the engine keeps the content after the tables).
+    Raises RuntimeError when the engine refuses the dictionary."""
 
-    The handle keeps a per-call entropy scratch, so every call on it holds
-    the object's lock.  ``close`` (or leaving a ``with`` block) frees the
-    handle; a closed dictionary raises."""
+    _free = "zt_ddict_free"
 
     def __init__(self, dict_raw: bytes, content_len: int, dict_id: int = 0):
-        self._lib = get_lib()
-        self._mtx = threading.Lock()
+        super().__init__()
         self.content_len = content_len
         self.dict_id = dict_id
+        self.last_fallback_count = 0
         raw = _u8(bytes(dict_raw))
         self._h = self._lib.zt_ddict_create(_ptr(raw, ctypes.c_uint8),
                                             len(raw))
         if not self._h:
             raise RuntimeError("zt_ddict_create refused the dictionary")
-
-    def _handle(self):
-        if not self._h:
-            raise ValueError("NativeDDict is closed")
-        return self._h
 
     def decode_frame_body(self, src, content_cap: int):
         """One frame body (after the header, before the checksum) against
@@ -379,45 +579,158 @@ class NativeDDict:
         return (out[self.content_len:self.content_len + size],
                 int(consumed[0]))
 
-    def decompress_many(self, frames: list[bytes]) -> list[bytes] | None:
-        """Every frame's content from one native call (the host bar for a
-        dictionary batch; checksums are verified natively), or None when
-        a frame is outside the call's reach: no content size, another
-        dictionary's ID, a corrupt body or a bad checksum (``decode_frame``
-        names the error)."""
-        concat = np.frombuffer(b"".join(frames), dtype=np.uint8)
-        flens = np.array([len(f) for f in frames], dtype=np.int64)
-        cap = int(len(concat) * 64 + (1 << 20))
-        out = np.empty(cap, dtype=np.uint8)
-        out_lens = np.zeros(len(frames), dtype=np.int64)
+    def decompress_many(self, frames: list[bytes],
+                        expect_dict_id: int | None = None,
+                        fallback=None) -> list[bytes] | None:
+        """Every frame's content from native calls (the host bar for a
+        dictionary batch; checksums are verified natively).  A frame
+        outside a call's reach -- no content size, another dictionary's
+        ID than `expect_dict_id` (default: this dictionary's), a corrupt
+        body or a bad checksum -- goes to `fallback(frame)`, the caller's
+        one-frame decoder that raises the proper error, and the batch
+        resumes natively after it; without a fallback the call returns
+        None.  ``last_fallback_count`` says how many frames left the
+        native path."""
+        if expect_dict_id is None:
+            expect_dict_id = self.dict_id
+        self.last_fallback_count = 0
+        results: list[bytes] = [b""] * len(frames)
+        start = 0
+        while start < len(frames):
+            sub = frames[start:]
+            concat = np.frombuffer(b"".join(sub), dtype=np.uint8)
+            flens = np.array([len(f) for f in sub], dtype=np.int64)
+            cap = int(len(concat) * 64 + (1 << 20))
+            out = np.empty(cap, dtype=np.uint8)
+            out_lens = np.zeros(len(sub), dtype=np.int64)
+            with self._mtx:
+                total = self._lib.zt_decompress_many_ddict(
+                    self._handle(), _ptr(concat, ctypes.c_uint8),
+                    _ptr(flens, ctypes.c_int64), len(sub), expect_dict_id,
+                    _ptr(out, ctypes.c_uint8), cap,
+                    _ptr(out_lens, ctypes.c_int64))
+            failed = len(sub) if total >= 0 else -int(total) - 2
+            if total < 0 and (failed < 0 or failed >= len(sub)
+                              or fallback is None):
+                return None
+            ends = np.cumsum(out_lens[:failed]).tolist()
+            for j, (e, n) in enumerate(zip(ends, out_lens.tolist())):
+                results[start + j] = out[e - n:e].tobytes()
+            if total >= 0:
+                return results
+            # the one frame the native call cannot serve; its error
+            # (dictionary_wrong, checksum_wrong, ...) propagates
+            results[start + failed] = fallback(sub[failed])
+            self.last_fallback_count += 1
+            start += failed + 1
+        return results
+
+
+class NativeCDict(_Handle):
+    """The engine's compression dictionary (CDictC, the ZSTD_CDict role):
+    the content as history, matcher tables prefilled at these parameters
+    and the dictionary's entropy as the starting tables.  ``valid`` is
+    False when the engine refused to create it (the callers then take the
+    Python block tier)."""
+
+    _free = "zt_cdict_free"
+
+    def __init__(self, dict_raw: bytes, strategy: int, hash_log: int,
+                 chain_log: int, search_log: int, window_log: int,
+                 min_match: int):
+        super().__init__()
+        raw = _u8(bytes(dict_raw))
+        self._h = self._lib.zt_cdict_create(
+            _ptr(raw, ctypes.c_uint8), len(raw), strategy, hash_log,
+            chain_log, search_log, window_log, min_match)
+
+    def entropy_stats(self, records: list[bytes]):
+        """Histograms of the records' attach-parse against the dictionary
+        (the ZDICT_countEStats role): (lit, ll, ml, of, rep_off) int64
+        arrays, or None."""
+        concat = np.frombuffer(b"".join(records), dtype=np.uint8)
+        lens = np.array([len(r) for r in records], dtype=np.int64)
+        hists = [np.zeros(n, np.int64) for n in (256, 36, 53, 29, 1024)]
         with self._mtx:
-            total = self._lib.zt_decompress_many_ddict(
+            rc = self._lib.zt_cdict_stats(
                 self._handle(), _ptr(concat, ctypes.c_uint8),
-                _ptr(flens, ctypes.c_int64), len(frames), self.dict_id,
+                _ptr(lens, ctypes.c_int64), len(records),
+                *(_ptr(h, ctypes.c_int64) for h in hists))
+        return tuple(hists) if rc == 0 else None
+
+    def compress_many(self, records: list[bytes],
+                      dict_id: int) -> list[bytes] | None:
+        """Every record's whole frame from one native call, or None."""
+        concat = np.frombuffer(b"".join(records), dtype=np.uint8)
+        lens = np.array([len(r) for r in records], dtype=np.int64)
+        cap = int(len(concat) + 64 * len(records) + 4096)
+        out = np.empty(cap, dtype=np.uint8)
+        out_lens = np.zeros(len(records), dtype=np.int64)
+        with self._mtx:
+            total = self._lib.zt_compress_many_cdict(
+                self._handle(), _ptr(concat, ctypes.c_uint8),
+                _ptr(lens, ctypes.c_int64), len(records), dict_id,
                 _ptr(out, ctypes.c_uint8), cap,
                 _ptr(out_lens, ctypes.c_int64))
         if total < 0:
             return None
+        raw = out[:int(total)].tobytes()
         ends = np.cumsum(out_lens).tolist()
-        return [out[e - n:e].tobytes() for e, n in zip(ends, out_lens.tolist())]
+        return [raw[e - n:e] for e, n in zip(ends, out_lens.tolist())]
 
-    def close(self) -> None:
+    def compress_frame_body(self, src: np.ndarray) -> bytes | None:
+        """One frame body (no header or checksum) against the dictionary,
+        or None."""
+        if len(src) == 0:
+            return None
+        n = len(src)
+        cap = n + (n >> 6) + 4096
+        out = np.empty(cap, dtype=np.uint8)
         with self._mtx:
-            if self._h:
-                self._lib.zt_ddict_free(self._h)
-                self._h = None
+            size = self._lib.zt_compress_frame_body_cdict(
+                self._handle(), _ptr(_u8(src), ctypes.c_uint8), n,
+                _ptr(out, ctypes.c_uint8), cap)
+        return None if size < 0 else out[:size].tobytes()
 
-    def __enter__(self):
-        return self
 
-    def __exit__(self, *exc):
-        self.close()
+class NativeDStream(_Handle):
+    """The engine's per-frame block decoder state (entropy tables and
+    repcodes) for the streaming decoder: one call per compressed block, or
+    one call per run of complete blocks, writing into the caller's window
+    buffer."""
 
-    def __del__(self):  # pragma: no cover
-        try:
-            self.close()
-        except Exception:
-            pass
+    _free = "zt_dstream_free"
+
+    def __init__(self):
+        super().__init__()
+        self._h = self._lib.zt_dstream_new()
+        if not self._h:
+            raise RuntimeError("zt_dstream_new failed")
+
+    def block(self, body: bytes, out: np.ndarray, out_pos: int,
+              prefix_start: int = 0) -> int:
+        """Decode one compressed block body into out[out_pos:]; the new
+        write position, negative on corruption."""
+        arr = _u8(body)
+        with self._mtx:
+            return int(self._lib.zt_dstream_block(
+                self._handle(), _ptr(arr, ctypes.c_uint8), len(arr),
+                _ptr(out, ctypes.c_uint8), out_pos, len(out), prefix_start))
+
+    def drain(self, src, out: np.ndarray, out_pos: int,
+              prefix_start: int = 0) -> tuple[int, int, bool]:
+        """Decode every complete block in `src` (any buffer-protocol
+        object); returns (new write position, input consumed, whether the
+        last block was seen)."""
+        arr = np.frombuffer(src, dtype=np.uint8)
+        consumed = ctypes.c_int64(0)
+        saw_last = ctypes.c_int(0)
+        with self._mtx:
+            r = self._lib.zt_dstream_drain(
+                self._handle(), _ptr(arr, ctypes.c_uint8), len(arr),
+                _ptr(out, ctypes.c_uint8), out_pos, len(out), prefix_start,
+                ctypes.byref(consumed), ctypes.byref(saw_last))
+        return int(r), int(consumed.value), bool(saw_last.value)
 
 
 def xxh64(data, seed: int = 0) -> int:

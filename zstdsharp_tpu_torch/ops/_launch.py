@@ -23,6 +23,21 @@ def check_operand(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def resolve_device(device) -> torch.device:
+    """`device` (a torch device or its name) as a torch.device, a CUDA
+    device without an index as the current card.  A CUDA device without
+    a card raises here, so that an entry point called with its default
+    never carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev}: no CUDA device is available "
+                               "(pass device='cpu' to run on the CPU)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def check_cuda(device: torch.device) -> None:
     """Raise unless `device` is a CUDA device: the kernels have no other."""
     if device.type != "cuda":
