@@ -33,8 +33,19 @@ Phases, each printed on its own line:
      and its serial floor: the window's longest lane alone, checked and
      timed through the raw launcher (``serial_floor_ms``);
   3. the same for the FSE kernel (``kernel_bench.fse_work``);
+ 3b. lz_exec: the LZ executor kernel against its plain version, byte for
+     byte, on every operand set the decode plane hands ``execseq.execute``
+     (captured through ``kernel_bench.capture_exec``): the decode cell's 4
+     chunks [64, 24576], the rounds of the two 400 KB multi-block frames,
+     every chunk and round of both dictionary sets (set 2's 128 KB window
+     row broadcast with stride 0), and random corrupt operands; then the
+     A/B on the decode cell's chunks, in turns (plain, kernel, kernel,
+     plain; the plain version is ``make_executor``'s run called directly
+     on the same CUDA tensors), the serial floor (the cell's longest lane
+     alone) and the bound (``kernel_bench.lz_work``);
   4. decode end to end: decoded bytes equal the inputs, none of the 256
-     records is routed to the host, both decode kernels were launched;
+     records is routed to the host, both decode kernels and the LZ
+     executor kernel were launched;
   5. decode timings (printed, not asserted): each kernel and its plain
      version, the pipeline's end-to-end and marginal GB/s and its stage
      times, and the host decoder on the same frames;
@@ -67,7 +78,8 @@ Phases, each printed on its own line:
      synchronised after each (their frame body equals the pipeline's);
  10. stream decode through ``decompress_data_parallel`` of the 256 decode
      frames concatenated: bytes equal the records, all 256 frames decoded
-     on the card, both decode kernels launched; prints GB/s and telemetry;
+     on the card, both decode kernels and the LZ executor launched;
+     prints GB/s and telemetry;
  11. records encode through ``compress_records_device`` on the 256 x 16 KB
      encode records: every frame decodes byte-exact with the host tier,
      the frames equal ``compress_batch_device``'s, the histogram kernel
@@ -77,7 +89,8 @@ Phases, each printed on its own line:
      ``dryrun_multichip(1)`` completes on the card (its lines printed);
  13. dictionary decode of each set: bytes equal the records, the rows
      equal the port's CPU run and so does the host-routed count (0), each
-     decode kernel launched across the two sets, and each kernel equals
+     decode kernel and the LZ executor launched across the two sets, and
+     each decode kernel equals
      its plain version on a set's operands (Huffman: set 2, FSE: set 1);
      prints (not asserted) end-to-end and marginal GB/s, the stage times
      and the engine's ``NativeDDict.decompress_many`` on the same frames;
@@ -88,10 +101,11 @@ Phases, each printed on its own line:
      1,000 records equals the committed dictionary, ``z.Compressor(3)``
      with it frames the 5,000 records into the committed frames, and
      ``z.Decompressor().unwrap_many_device(frames)`` with no device
-     decodes them byte-exact on cuda:0 (the FSE kernel launched), as does
-     ``unwrap_many`` on the host; (b) ``Compressor(9).wrap_many`` over
-     phase 4's 256 x 24 KB records, then ``unwrap_many_device()``:
-     byte-exact, both decode kernels launched, the host-routed count
+     decodes them byte-exact on cuda:0 (the FSE kernel and the LZ executor
+     launched), as does ``unwrap_many`` on the host; (b)
+     ``Compressor(9).wrap_many`` over phase 4's 256 x 24 KB records, then
+     ``unwrap_many_device()``: byte-exact, both decode kernels and the LZ
+     executor launched, the host-routed count
      printed; (c) a level-3 ``CompressionStream`` with a checksum over the
      8 MB prefix, written in chunks of 1, 7, 4,096 and 65,536 bytes in
      turn and flushed every 1 MB, read back by ``DecompressionStream`` in
@@ -260,12 +274,104 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
             "launcher_ms": launcher_ms, "serial_floor_ms": floor_ms}
 
 
+def _lz_phase(frames, mb_frames, big, dev, card):
+    """Phase 3b: the LZ executor kernel against its plain version on every
+    operand set the decode plane gives it, and its timings on the decode
+    cell's chunks.  Returns the kernel's JSON fields (ms, plain_ms and
+    bound_ms per chunk, averaged over the cell's 4 chunks)."""
+    import numpy as np
+    import torch
+
+    from zstdsharp_tpu_torch.decode import device_pipeline as dp
+    from zstdsharp_tpu_torch.dictionary import parse_dictionary
+    from zstdsharp_tpu_torch.kernel_bench import (bound, capture_exec,
+                                                  lz_corrupt, lz_plain,
+                                                  lz_work)
+    from zstdsharp_tpu_torch.ops.execseq import execute
+
+    sets = _dict_sets()
+    groups = {"decode cell": capture_exec(
+                  lambda: dp.decode_batch_device(frames, dev)),
+              "multi-block": capture_exec(
+                  lambda: dp.decode_batch_device(mb_frames, dev))}
+    for name in ("json", "corpus"):
+        d, dframes, _ = sets.load(name, big)
+        pd = parse_dictionary(d)
+        groups[f"dictionary {name}"] = capture_exec(
+            lambda: dp.decode_batch_device(dframes, dev, ddict=pd))
+    rng = np.random.default_rng(10)
+    groups["corrupt"] = [lz_corrupt(rng, *shape, dev, bc)
+                         for *shape, bc in ((64, 4096, 24576, 8, False),
+                                            (16, 1024, 24576, 1 << 15, True),
+                                            (4, 4096, 1 << 17, 1 << 17,
+                                             False))]
+    cell = groups["decode cell"]
+    _check(len(cell) == 4 and all(a[0].shape[1] == REC_SIZE for a in cell),
+           f"the decode cell runs 4 chunks of [64, {REC_SIZE}]")
+    _check(any(a[1].shape[1] == 1 << 17 and a[1].stride(0) == 0
+               for a in groups["dictionary corpus"]),
+           "set 2 runs its 128 KB window row broadcast to the lanes")
+    err, shapes = 0.0, {}
+    for name, calls in groups.items():
+        _check(calls, f"{name}: the decode plane called execute")
+        for args in calls:
+            got = execute(*args)
+            torch.cuda.synchronize()
+            want = lz_plain(args)
+            torch.cuda.synchronize()
+            err = max(err, float((got.long() - want.long()).abs().max()))
+        shapes[name] = sorted({(tuple(a[0].shape), a[2].shape[1],
+                                a[1].shape[1], a[1].stride(0))
+                               for a in calls})
+    _check(err == 0.0, "lz_exec kernel equals its plain version")
+
+    # A/B on the decode cell's chunks, in turns: plain, kernel, kernel, plain
+    k_ms, p_ms, b_ms = [], [], []
+    for args in cell:
+        a = _gpu_ms(lambda: lz_plain(args), 3)
+        k1 = _gpu_ms(lambda: execute(*args), 20)
+        k2 = _gpu_ms(lambda: execute(*args), 20)
+        b = _gpu_ms(lambda: lz_plain(args), 3)
+        k_ms.append((k1 + k2) / 2)
+        p_ms.append((a + b) / 2)
+        b_ms.append(bound(*lz_work(args)))
+    args = max(cell, key=lambda a: int(a[5].max()))
+    longest = int(torch.argmax(args[5]))
+    lane = [a[longest:longest + 1] for a in args]
+    _check(torch.equal(execute(*lane), lz_plain(lane)),
+           "lz_exec kernel equals its plain version on the longest lane")
+    floor_ms = _gpu_ms(lambda: execute(*lane), 20)
+    n_max, seqs = int(lane[5][0]), [int(a[5].clamp(min=0).sum())
+                                    for a in cell]
+    ms, plain_ms = sum(k_ms) / 4, sum(p_ms) / 4
+    bound_ms = sum(b for b, _ in b_ms) / 4
+    print(f"phase lz_exec: kernel == plain on {sum(map(len, groups.values()))}"
+          f" calls (max_abs_err {err}): "
+          f"{ {k: len(v) for k, v in groups.items()} } calls of (lit shape, "
+          f"S, W, window row stride) {shapes}; decode cell chunks "
+          f"({seqs} sequences): kernel {[round(x, 4) for x in k_ms]} ms, "
+          f"plain {[round(x, 3) for x in p_ms]} ms (turns plain, kernel, "
+          f"kernel, plain; CUDA events), bound "
+          f"{[round(b, 5) for b, _ in b_ms]} ms ({b_ms[0][1]}); serial "
+          f"floor: the longest lane alone ({n_max} sequences) {floor_ms:.4f}"
+          f" ms, {floor_ms * 1e6 / max(n_max, 1):.1f} ns a sequence; no "
+          f"single PyTorch call computes it, on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": b_ms[0][1], "library_ms": None,
+            "serial_floor_ms": floor_ms, "ms_chunks": k_ms,
+            "plain_ms_chunks": p_ms}
+
+
 def _kernel_wrappers():
-    from zstdsharp_tpu_torch.ops import device_fse, device_huf, histogram
+    from zstdsharp_tpu_torch.ops import device_fse, device_huf, execseq
+    from zstdsharp_tpu_torch.ops import histogram
 
     return {"huf_decode": device_huf.decode_lanemajor,
             "fse_decode": device_fse.decode_lanemajor,
-            "histogram": histogram.histogram_u8}
+            "histogram": histogram.histogram_u8,
+            "lz_exec": execseq.execute}
+
+DECODE_KERNELS = ("huf_decode", "fse_decode", "lz_exec")
 
 
 def _reset_counts():
@@ -603,7 +709,7 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
     _check(out == payload, "the stream decodes to the records")
     _check(tel["device_frames"] == N_RECORDS,
            f"device_frames {tel['device_frames']}")
-    _check(counts["huf_decode"] > 0 and counts["fse_decode"] > 0,
+    _check(all(counts[k] > 0 for k in DECODE_KERNELS),
            f"decode kernels launched {counts}")
     for k, v in counts.items():
         launches[k] += v
@@ -704,7 +810,7 @@ def _dict_phases(big, dev, card):
     from zstdsharp_tpu_torch.ops import device_huf as dh
 
     sets = _dict_sets()
-    launches = {"huf_decode": 0, "fse_decode": 0}
+    launches = dict.fromkeys(DECODE_KERNELS, 0)
     for name, mod, which, outputs_of in (
             ("json", df, "fse", lambda o: o),
             ("corpus", dh, "huf", lambda o: (o,))):
@@ -810,7 +916,7 @@ def _api_phase(recs, data, card):
 
     sets = _dict_sets()
     d0, frames0, jrecs = sets.load("json")
-    launches = {"huf_decode": 0, "fse_decode": 0}
+    launches = dict.fromkeys(DECODE_KERNELS, 0)
     cuda0 = torch.device("cuda", 0)
 
     def counted(dec, frames):
@@ -843,7 +949,8 @@ def _api_phase(recs, data, card):
     dec.load_dictionary(d)
     got, _, counts_a, dev_s = counted(dec, frames)
     _check(got == jrecs, "dictionary frames decode byte-exact on the card")
-    _check(counts_a["fse_decode"] > 0, f"FSE kernel launched {counts_a}")
+    _check(counts_a["fse_decode"] > 0 and counts_a["lz_exec"] > 0,
+           f"FSE and LZ executor kernels launched {counts_a}")
     t = time.perf_counter()
     _check(dec.unwrap_many(frames) == jrecs, "unwrap_many on the host")
     host_s = time.perf_counter() - t
@@ -861,7 +968,7 @@ def _api_phase(recs, data, card):
     got, host, counts_b, dev9_s = counted(z.Decompressor(), frames9)
     _check(got == recs, "level-9 frames decode byte-exact on the card")
     _check(all(counts_b[k] > 0 for k in launches),
-           f"both decode kernels launched {counts_b}")
+           f"the decode kernels launched {counts_b}")
     routed = sum(isinstance(v, bytes) for v in host.values())
     print(f"phase public API (b): Compressor(9).wrap_many of {len(recs)} x "
           f"{REC_SIZE} B {wrap9_s * 1e3:.1f} ms, unwrap_many_device() "
@@ -971,6 +1078,7 @@ def main() -> int:
                         huf_work, card)
     fse = _kernel_phase("fse_decode", df, fops, lambda o: o, "nseq",
                         fse_work, card)
+    lz = _lz_phase(frames, extra_frames[:2], big, dev, card)
 
     # ---- the decode path, once, through the user entry point ----
     all_in = recs + extras
@@ -979,7 +1087,7 @@ def main() -> int:
     outs, lens, host = Decompressor().unwrap_many_device(all_frames, dev)
     torch.cuda.synchronize()
     counts = _counts()
-    launches = {k: counts[k] for k in ("huf_decode", "fse_decode")}
+    launches = {k: counts[k] for k in DECODE_KERNELS}
     got = _frame_bytes(len(all_frames), outs, lens, host)
     host_routed = [fi for fi, v in host.items() if isinstance(v, bytes)]
     _check(got == all_in, "decoded bytes equal the inputs")
@@ -1035,7 +1143,8 @@ def main() -> int:
                for name, fields, src, rep in (
                    ("huf_decode", huf, "huf_decode.cu", "device_huf.py:238"),
                    ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
-                   ("histogram", hist, "histogram.cu", "histogram.py:36"))]
+                   ("histogram", hist, "histogram.cu", "histogram.py:36"),
+                   ("lz_exec", lz, "lz_exec.cu", "execseq.py:41"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

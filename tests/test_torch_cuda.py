@@ -22,8 +22,11 @@ from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor, decompress
 from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.encode.frame import compress
+from zstdsharp_tpu_torch.kernel_bench import (capture_exec, lz_corrupt,
+                                             lz_plain)
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
+from zstdsharp_tpu_torch.ops import execseq as ex
 from zstdsharp_tpu_torch.ops import histogram as hg
 from zstdsharp_tpu_torch.ops.matcher import candidate_stage
 from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
@@ -425,6 +428,102 @@ def test_dictionary_kernels_equal_plain(cuda):
         else:
             assert int(ops["nseq"].max()) > 0
             _fse_equal_plain(ops)
+
+
+def _lz_equal_plain(args):
+    """Launch the LZ executor kernel once on `args`, synchronise (a fault
+    raises here), hold it byte for byte against the plain version."""
+    before = ex.execute.launches
+    got = ex.execute(*args)
+    torch.cuda.synchronize()
+    assert ex.execute.launches == before + 1
+    want = lz_plain(args)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_lz_exec_decode_cell_chunks(cuda):
+    """The bench's decode batch (256 records of 24 KB at level 9): its 4
+    chunks [64, 24576] as _fused_decode builds them."""
+    n = 24 << 10
+    data = _corpus(6 << 20)
+    frames = [compress(data[i:i + n], 9) for i in range(0, 6 << 20, n)]
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    assert len(calls) == 4 and {a[0].shape[1] for a in calls} == {n}
+    assert max(int(a[5].max()) for a in calls) > 1000
+    for args in calls:
+        _lz_equal_plain(args)
+
+
+def test_lz_exec_multi_block_rounds(cuda):
+    """Two 400 KB level-3 frames: the dependent rounds [2, 131072], each
+    lane's window the 1 MB of content before its block."""
+    data = _corpus(1 << 20)
+    frames = [compress(data[:400_000], 3), compress(data[400_000:800_000], 3)]
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    assert len(calls) >= 3 and {a[0].shape[1] for a in calls} == {1 << 17}
+    for args in calls:
+        _lz_equal_plain(args)
+
+
+def test_lz_exec_dictionary_window_row(cuda):
+    """Dictionary set 2: the 112,640-byte dictionary's tail as one 128 KB
+    window row broadcast to the lanes (stride 0), and its multi-block
+    frames' windows of content plus dictionary."""
+    from zstdsharp_tpu_torch.dictionary import parse_dictionary
+
+    d, frames, _ = _dict_sets().load("corpus")
+    pd = parse_dictionary(d)
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda,
+                                                        ddict=pd))
+    assert any(a[1].shape[1] == 1 << 17 and a[1].stride(0) == 0
+               for a in calls)
+    for args in calls:
+        _lz_equal_plain(args)
+
+
+@pytest.mark.parametrize("B,S,O,W,broadcast,seed", [
+    (64, 256, 4096, 8, False, 1),
+    (16, 1024, 24576, 1 << 15, True, 2),
+    (4, 4096, 1 << 17, 1 << 17, False, 3),
+    (33, 100, 3000, 0, False, 4),
+    (64, 4096, 24576, 8, False, 5)])
+def test_lz_exec_random_corrupt_operands(cuda, B, S, O, W, broadcast, seed):
+    """Corrupt operands give the plain version's bytes (chains, pool
+    references below index 0, positions past O, cycles) and no illegal
+    address."""
+    rng = np.random.default_rng(seed)
+    _lz_equal_plain(lz_corrupt(rng, B, S, O, W, cuda, broadcast))
+
+
+def test_lz_exec_largest_shapes(cuda):
+    """O = 128 KB (the top output bucket) with the largest window, 4 MB a
+    lane, and valid sequences: overlapping matches, matches back into the
+    output and deep into the window."""
+    B, S, O, W = 4, 8192, 1 << 17, 1 << 22
+    rng = np.random.default_rng(6)
+    ll = np.zeros((B, S), np.int32)
+    ml = np.zeros((B, S), np.int32)
+    off = np.ones((B, S), np.int32)
+    n_seq = np.zeros(B, np.int64)
+    for b in range(B):
+        pos, k = 0, 0
+        while k < S:
+            lk, mk = int(rng.integers(0, 20)), int(rng.integers(3, 60))
+            if pos + lk + mk > O - 64:
+                break
+            kind = int(rng.integers(0, 3))
+            ok = (int(rng.integers(1, mk + 1)) if kind == 0 else
+                  int(rng.integers(1, pos + lk + 1)) if kind == 1 and pos
+                  else int(rng.integers(pos + lk + 1, pos + lk + W + 1)))
+            ll[b, k], ml[b, k], off[b, k] = lk, mk, ok
+            pos, k = pos + lk + mk, k + 1
+        n_seq[b] = k
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(0, 256, (B, O), dtype=np.uint8),
+        rng.integers(0, 256, (B, W), dtype=np.uint8), ll, ml, off, n_seq,
+        np.full(B, 40, np.int64), np.full(B, O, np.int64))]
+    assert int(args[5].min()) > 1000
+    _lz_equal_plain(args)
 
 
 @pytest.mark.parametrize("rate_log", [4, 7, 12])

@@ -8,8 +8,15 @@ byte-exact with no frame routed to the host, and times it: the end-to-end
 ms of each of ``--reps`` calls (each ending in ``torch.cuda.synchronize``)
 and, over as many more calls, the stage times of
 ``decode_batch_device(timings=)``.  Checkouts run in turns, A B B A for two
-(``--rounds`` times), so drift on the machine hits both alike.  Prints one
-JSON line per turn and writes the list to ``--out``.
+(``--rounds`` times), so drift on the machine hits both alike.  The two
+committed dictionary sets of tests/torch_data/dict_sets.py (``json`` and
+``corpus``) are decoded the same way in the same turn through
+``decode_batch_device(ddict=)``: byte-exact, then end-to-end ms and stage
+times (set ``corpus`` has multi-block frames, so ``mb_exec``).  Each turn
+ends with one decode of the workload under torch.profiler: wall ms, device
+events, the device's busy ms (the union of their intervals) and share,
+and device ms by kernel name.  Prints one JSON line per turn and writes
+the list to ``--out``.
 
     python tools/torch_decode_ab.py --tree build/ab/parent --tree . \\
         --out build/decode_ab.json
@@ -25,6 +32,51 @@ import time
 from pathlib import Path
 
 REC_SIZE = 24 << 10
+DICT_SETS = ("json", "corpus")
+
+
+def _time(call, reps: int) -> tuple[list, dict]:
+    """(end-to-end ms of `reps` calls, stage ms of `reps` timed calls):
+    call(timings) decodes once, ending in a synchronise."""
+    call(None)
+    e2e, stages = [], {}
+    for _ in range(reps):
+        t = time.perf_counter()
+        call(None)
+        e2e.append((time.perf_counter() - t) * 1e3)
+    for _ in range(reps):
+        tm: dict = {}
+        call(tm)
+        for k, v in tm.items():
+            stages.setdefault(k, []).append(v * 1e3)
+    return e2e, stages
+
+
+def _profile(call) -> dict:
+    """One call(None) under torch.profiler: wall ms, device events, busy
+    ms and share, and the 8 largest device ms by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        call(None)
+        wall = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy += max(hi - lo, 0.0)
+        end = max(end, hi)
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall, "device_events": len(events),
+            "device_busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall,
+            "device_ms_by_name": dict(top)}
 
 
 def child(tree: Path, reps: int) -> dict:
@@ -44,24 +96,44 @@ def child(tree: Path, reps: int) -> dict:
     if results != recs or stats["host_frames"]:
         raise RuntimeError(f"{tree}: decode not byte-exact or host-routed")
 
-    def run():
-        Decompressor().unwrap_many_device(frames, dev)
+    def run(tm):
+        if tm is None:
+            Decompressor().unwrap_many_device(frames, dev)
+        else:
+            dp.decode_batch_device(frames, dev, timings=tm)
         torch.cuda.synchronize()
 
-    run()
-    e2e = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        run()
-        e2e.append((time.perf_counter() - t) * 1e3)
-    stages: dict = {}
-    for _ in range(reps):
-        tm: dict = {}
-        dp.decode_batch_device(frames, dev, timings=tm)
-        for k, v in tm.items():
-            stages.setdefault(k, []).append(v * 1e3)
-    return {"tree": str(tree), "card": torch.cuda.get_device_name(0),
-            "e2e_ms": e2e, "stages_ms": stages}
+    e2e, stages = _time(run, reps)
+    out = {"tree": str(tree), "card": torch.cuda.get_device_name(0),
+           "e2e_ms": e2e, "stages_ms": stages}
+    sys.path.insert(0, str(tree / "tests" / "torch_data"))
+    import dict_sets as sets
+
+    from zstdsharp_tpu_torch.dictionary import parse_dictionary
+    for name in DICT_SETS:
+        d, dframes, drecs = sets.load(name)
+        pd = parse_dictionary(d)
+        results, stats = dp.decode_batch_device(dframes, dev, ddict=pd,
+                                                materialize=True)
+        if results != drecs or stats["host_frames"]:
+            raise RuntimeError(f"{tree}: set {name} not byte-exact or "
+                               "host-routed")
+
+        def run_set(tm):
+            dp.decode_batch_device(dframes, dev, ddict=pd, timings=tm)
+            torch.cuda.synchronize()
+
+        out[f"dict_{name}"] = dict(zip(("e2e_ms", "stages_ms"),
+                                       _time(run_set, reps)))
+    out["profile"] = _profile(run)  # last: runs after a profile are slower
+    return out
+
+
+def _medians(r: dict) -> dict:
+    e2e = sorted(r["e2e_ms"])
+    return {"e2e_ms_median": e2e[len(e2e) // 2],
+            "stages_ms_median": {k: sorted(v)[len(v) // 2]
+                                 for k, v in r["stages_ms"].items()}}
 
 
 def main(argv=None) -> int:
@@ -89,11 +161,11 @@ def main(argv=None) -> int:
             print(r.stderr[-4000:], file=sys.stderr)
             return 1
         turns.append(json.loads(r.stdout.strip().splitlines()[-1]))
-        e2e = sorted(turns[-1]["e2e_ms"])
-        print(json.dumps({"tree": str(tree), "e2e_ms_median": e2e[len(e2e) // 2],
-                          "stages_ms_median": {
-                              k: sorted(v)[len(v) // 2]
-                              for k, v in turns[-1]["stages_ms"].items()}}))
+        line = {"tree": str(tree), **_medians(turns[-1]),
+                "profile": turns[-1]["profile"]}
+        for name in DICT_SETS:
+            line[f"dict_{name}"] = _medians(turns[-1][f"dict_{name}"])
+        print(json.dumps(line))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(turns))
     return 0

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("huf_decode.cu", "fse_decode.cu", "histogram.cu")
+SOURCES = ("huf_decode.cu", "fse_decode.cu", "histogram.cu", "lz_exec.cu")
 LIB_PATH = BUILD_DIR / "libzt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -125,5 +125,9 @@ def load() -> ctypes.CDLL:
                                      p]
         lib.zt_histogram_floor.restype = i
         lib.zt_histogram_floor.argtypes = [i, i, i, p]
+        q = ctypes.c_longlong
+        lib.zt_lz_exec.restype = i
+        lib.zt_lz_exec.argtypes = [p, q, p, q, q, p, p, p, q, p, p, p, p, q,
+                                   p, p, i, i, i, p]
         _lib = lib
         return lib

@@ -4,8 +4,10 @@ zstdsharp_tpu/decode/device_pipeline.py).
 ``decode_batch_device(frames, device)`` decodes a batch of zstd frames on
 `device`: Huffman literal sections through ``ops.device_huf``, sequence
 sections through ``ops.device_fse`` (hand-written CUDA kernels on a GPU,
-their plain torch versions on the CPU), literal assembly and LZ execution
-through ``ops.execseq`` in torch.  Decoded rows stay on the device.
+their plain torch versions on the CPU), literal assembly in torch and LZ
+execution through ``ops.execseq.execute`` (a hand-written CUDA kernel on
+a GPU, its plain torch version on the CPU).  Decoded rows stay on the
+device.
 
 The host half is the port's own copy of the reference's: the native
 planner (``zt_dplane_*`` in native/zstdtpu_core.cpp, bound by the port's
@@ -46,7 +48,7 @@ from ..errors import ZstdError, ZstdErrorCode
 from ..ops import device_fse as df
 from ..ops import device_huf as dh
 from ..ops._launch import resolve_device
-from ..ops.execseq import make_executor
+from ..ops.execseq import execute
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
                     decode_sequences)
@@ -792,11 +794,12 @@ def _dyn_slice(flat: torch.Tensor, starts: torch.Tensor, size: int):
 
 
 def _fused_decode(meta, huf_flat, huf_T, fse_rows, fse_T, h_rows, raw_flat,
-                  window, S, L, O):
-    """Per-lane metadata + kernel outputs -> decoded bytes [B, O] uint8
-    (reference _fused_decode).  meta [B, 11] int64: lit_kind, pool_base,
-    pool_len, huf_lane0, huf_seg, seq_kind, fse_lane, host_row, n_seq,
-    lit_regen, out_len.  window [B, W] uint8."""
+                  window, S, L):
+    """Per-lane metadata + kernel outputs -> decoded bytes [B, L] uint8
+    (reference _fused_decode with its L = O: the literal rows are as wide
+    as the output).  meta [B, 11] int64: lit_kind, pool_base, pool_len,
+    huf_lane0, huf_seg, seq_kind, fse_lane, host_row, n_seq, lit_regen,
+    out_len.  window [B, W] uint8."""
     dev = meta.device
     B = meta.shape[0]
     lit_kind, pool_base, pool_len, lane0 = meta[:, 0], meta[:, 1], \
@@ -842,8 +845,8 @@ def _fused_decode(meta, huf_flat, huf_T, fse_rows, fse_T, h_rows, raw_flat,
     live = torch.arange(S, device=dev)[None, :] < n_seq[:, None]
     sum_ll = torch.where(live, ll.to(torch.int64), 0).sum(dim=1)
     last_lit = lit_regen - sum_ll
-    run = make_executor(B, S, L, window.shape[1], O)
-    return run(lit, window, ll, ml, off, n_seq, last_lit, out_len)
+    return execute(lit, window, ll, ml, off, n_seq.contiguous(), last_lit,
+                   out_len.contiguous())
 
 
 def _meta_row(b):
@@ -989,7 +992,7 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
             meta[k] = _meta_row(b)
         outputs.append(_fused_decode(
             torch.from_numpy(meta).to(device), huf_flat, huf_T, fse_rows,
-            fse_T, h_rows, raw_flat, window, S, O, O))
+            fse_T, h_rows, raw_flat, window, S, O))
     if outputs:
         tick("exec")
 
@@ -1024,7 +1027,7 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
             windows = torch.gather(acc, 1, ws)
             outs = _fused_decode(
                 torch.from_numpy(meta).to(device), huf_flat, huf_T,
-                fse_rows, fse_T, h_rows, raw_flat, windows, S, O_max, O_max)
+                fse_rows, fse_T, h_rows, raw_flat, windows, S, O_max)
             # inactive lanes write zeros past their content (padding)
             os_ = (Wb + st).clamp(0, acc.shape[1] - O_max)[:, None] + cols_o
             acc.scatter_(1, os_, outs)

@@ -40,6 +40,10 @@ held to.
    checked against the plain version on each window and timed in turns
    (the baselines, the kernel twice, the baselines in reverse).
 
+``capture_exec``, ``lz_work``, ``lz_corrupt`` and ``lz_plain`` serve the
+LZ executor kernel (``csrc/lz_exec.cu``), which chip_smoke.py and the card
+tests check and time on the operands the decode plane gives it.
+
 Prints what ``nvcc -Xptxas -v`` reports for each source built alone.
 Every time is printed beside the card's name and power limit, and the
 whole result goes to a JSON file (``--out``, by default
@@ -60,7 +64,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops import device_fse, device_huf
+from .ops import device_fse, device_huf, execseq
 
 ROOT = Path(__file__).resolve().parent.parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -127,6 +131,94 @@ def hist_work(data: torch.Tensor, mask=None) -> tuple[int, int]:
         kept[lead:lead + mask.numel()] = mask.reshape(-1)
         n_bytes = mask.numel() + 32 * int(kept.view(-1, 32).any(1).sum())
     return n_bytes + rows * 256 * 4, 2 * data.numel()
+
+
+def lz_work(args) -> tuple[int, int]:
+    """(bytes, operations) of one ``execseq.execute`` call on `args` (lit,
+    window, ll, ml, off, n_seq, last_lit, out_len): the [B, O] output
+    (O = L) written, each lane's literals read (its live ll and last_lit,
+    at most L), the distinct window bytes its matches read (one row for a
+    broadcast window), 12 bytes a live sequence and 24 a lane; about 4
+    operations an output byte below out_len and 20 a sequence."""
+    lit, window, ll, ml, off, n_seq, last_lit, out_len = args
+    B, L = lit.shape
+    O, W, S = L, window.shape[1], ll.shape[1]
+    dev = lit.device
+    n = n_seq.clamp(0, S)
+    live = torch.arange(S, device=dev)[None, :] < n[:, None]
+    lk = torch.where(live, ll.long(), 0).clamp(min=0)
+    mk = torch.where(live, ml.long(), 0).clamp(min=0)
+    lit_bytes = int((lk.sum(1) + last_lit.clamp(min=0)).clamp(max=L).sum())
+    size = lk + mk
+    ms = torch.cumsum(size, 1) - size + lk
+    o = off.long().clamp(min=1)
+    a = (W + ms - o).clamp(0, W)
+    e = (W + ms - o + torch.minimum(mk, o)).clamp(0, W)
+    shared = B > 1 and window.stride(0) == 0
+    rows = torch.zeros(B, S, dtype=torch.long, device=dev) if shared else \
+        torch.arange(B, device=dev)[:, None].expand(B, S)
+    keep = live & (e > a)
+    marks = torch.zeros(1 if shared else B, W + 1, dtype=torch.long,
+                        device=dev)
+    marks.index_put_((rows[keep], a[keep]), torch.ones_like(a[keep]),
+                     accumulate=True)
+    marks.index_put_((rows[keep], e[keep]), -torch.ones_like(e[keep]),
+                     accumulate=True)
+    win_bytes = int((torch.cumsum(marks[:, :W], 1) > 0).sum())
+    seqs = int(n.sum())
+    n_bytes = B * O + lit_bytes + win_bytes + 12 * seqs + 24 * B
+    return n_bytes, 4 * int(out_len.clamp(0, O).sum()) + 20 * seqs
+
+
+def capture_exec(run) -> list:
+    """Call ``run()`` with the decode plane's ``execute`` recording its
+    operands: the args of every call, the tensors as passed (none is
+    written after the call)."""
+    from .decode import device_pipeline as dp
+
+    calls, real = [], dp.execute
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    dp.execute = spy
+    try:
+        run()
+    finally:
+        dp.execute = real
+    return calls
+
+
+def lz_corrupt(rng, B: int, S: int, O: int, W: int, dev,
+               broadcast: bool = False) -> list:
+    """``execute`` operands no decoder would produce: random literal rows
+    of O bytes and window bytes (one row for all lanes when `broadcast`),
+    ll, ml and off random int32 (half of them small), n_seq past both ends,
+    last_lit any int64, out_len up to O."""
+    def i32(mod):
+        v = rng.integers(-2**31, 2**31, (B, S)).astype(np.int32)
+        small = rng.random((B, S)) < 0.5
+        return torch.from_numpy(np.where(small, v % mod, v).astype(np.int32))
+
+    window = torch.from_numpy(rng.integers(0, 256, (1 if broadcast else B, W),
+                                           dtype=np.uint8))
+    args = [torch.from_numpy(rng.integers(0, 256, (B, O), dtype=np.uint8)),
+            window, i32(40), i32(60), i32(2 * O + W),
+            torch.from_numpy(rng.integers(-3, S + 4, B)),
+            torch.from_numpy(rng.integers(-2**40, 2**40, B)),
+            torch.from_numpy(rng.integers(-5, O + 1, B))]
+    args = [a.to(dev) for a in args]
+    if broadcast:
+        args[1] = args[1].expand(B, W)
+    return args
+
+
+def lz_plain(args) -> torch.Tensor:
+    """The plain version of ``execute`` on `args`, on their device."""
+    B, O = args[0].shape
+    return execseq.make_executor(B, args[2].shape[1], O, args[1].shape[1],
+                                 O)(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,14 @@
-"""LZ sequence execution in torch (counterpart of
-zstdsharp_tpu/ops/execseq.py, ZSTD_execSequence:2187 role).
+"""LZ sequence execution: CUDA kernel and plain torch version (counterpart
+of zstdsharp_tpu/ops/execseq.py, ZSTD_execSequence:2187 role).
 
-Plain torch, as the reference is plain XLA: the same three stages run on
-whatever device the operands are on.
+``execute(lit, window, ll, ml, off, n_seq, last_lit, out_len)`` is the
+decode plane's entry: CPU tensors run ``make_executor``'s plain version,
+CUDA tensors launch ``csrc/lz_exec.cu`` (one block per lane walking its
+sequences in order; its source note says what bounds it and how the design
+answers).  Both give the same bytes on any operands.
+
+The plain version is plain torch, as the reference is plain XLA: the same
+three stages run on whatever device the operands are on.
 1. Segment layout: exclusive prefix sums over (ll, ml) give every literal
    run's and match run's output start; each output byte's segment comes from
    the reference's vectorised binary search.
@@ -14,19 +20,27 @@ whatever device the operands are on.
    the host through ``.any()``), then one gather from literals || window.
 
 Integer semantics follow the reference under JAX's x64 mode: lengths and
-offsets are taken as u32 and reinterpreted as int32, sums run in int64, an
-offset reaching past the window reads the literal region, and a jump to a
+offsets are taken as u32 and reinterpreted as int32, an offset reaching
+past the window reads the literal region, and a jump to a
 position at or past O resolves to the last pool byte (the reference's
-out-of-bounds gather fill).  Unlike the reference's unbounded while loop,
-jumping stops after ceil(log2 O) + 2 rounds: an acyclic chain resolves by
-then, and a cycle (possible only with corrupt offsets) reads pool byte 0
-instead of hanging.
+out-of-bounds gather fill).  A pool index below 0 (an offset reaching past
+the literal region too, or a negative literal index) encodes as a source
+>= 0, i.e. output position -index - 1, as in the reference.  Unlike the
+reference's unbounded while loop, jumping stops after ceil(log2 O) + 2
+rounds: an acyclic chain resolves by then, and a cycle (possible only with
+corrupt operands) reads pool byte 0 instead of hanging.  The prefix sums
+run in int64, where the reference's stay int32 (``jnp.cumsum`` keeps
+int32) and wrap once a lane's sums pass 2^31, which only corrupt operands
+reach: there the two differ, and this version is the kernel's definition.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import _build
+from ._launch import check_cuda, check_operand, launch
 
 # stands in for the reference's gather fill value (INT64_MIN): any value
 # this negative clips to the last pool index in the final gather
@@ -38,12 +52,22 @@ def _as_i32(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int64).to(torch.int32).to(torch.int64)
 
 
+# the kernel's output row lives in shared memory: 227 KB, the most a block
+# may opt into, less 8 KB for its static part (csrc/lz_exec.cu kSmemMax)
+MAX_O = 232448 - 8192
+
+
+def _rounds(S: int, O: int) -> tuple[int, int]:
+    """(binary-search rounds, pointer-jumping rounds) of the shape."""
+    return (int(np.ceil(np.log2(S + 2))) + 1,
+            int(np.ceil(np.log2(max(O, 2)))) + 2)
+
+
 def make_executor(B: int, S: int, L: int, W: int, O: int):
     """Executor for one shape: returns run(lit [B, L] u8, window [B, W] u8,
     ll/ml/off [B, S], n_seq/last_lit/out_len [B]) -> uint8 [B, O] outputs
     (bytes beyond out_len[b] are zero)."""
-    search_rounds = int(np.ceil(np.log2(S + 2))) + 1
-    jump_rounds = int(np.ceil(np.log2(max(O, 2)))) + 2
+    search_rounds, jump_rounds = _rounds(S, O)
 
     def run(lit, window, ll, ml, off, n_seq, last_lit, out_len):
         for name, t, shape in (("lit", lit, (B, L)), ("window", window, (B, W)),
@@ -119,3 +143,77 @@ def make_executor(B: int, S: int, L: int, W: int, O: int):
         return torch.where(pos < out_len[:, None], out, 0).to(torch.uint8)
 
     return run
+
+
+def _check_window(window, B: int, dev: torch.device) -> int:
+    """Raise unless window is uint8 [B, W] on dev whose rows are contiguous
+    and either W bytes apart or one row broadcast to all (stride 0, as
+    ``_window_rows`` builds it).  Returns the row stride the kernel takes."""
+    if not isinstance(window, torch.Tensor):
+        raise TypeError(f"window: expected a torch.Tensor, got {type(window)}")
+    if window.dtype != torch.uint8:
+        raise TypeError(f"window: expected torch.uint8, got {window.dtype}")
+    if window.device != dev:
+        raise ValueError(f"window: on {window.device}, expected {dev}")
+    if window.dim() != 2 or window.shape[0] != B:
+        raise ValueError(f"window: shape {tuple(window.shape)}, expected "
+                         f"({B}, W)")
+    W = window.shape[1]
+    if W > 1 and window.stride(1) != 1:
+        raise ValueError("window: rows must be contiguous")
+    ws = window.stride(0) if B > 1 else 0
+    if ws not in (0, W):
+        raise ValueError(f"window: row stride {ws}, expected 0 or {W}")
+    return ws
+
+
+def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len
+            ) -> torch.Tensor:
+    """Execute each lane's sequences: lit uint8 [B, O] (the literal rows
+    are as wide as the output, as the decode plane builds them), window
+    uint8 [B, W] (contiguous, or one row broadcast with stride 0),
+    ll/ml/off int32 [B, S] (u32 bits), n_seq/last_lit/out_len int64 [B]
+    -> uint8 [B, O] (bytes at or past out_len are zero).  CPU tensors run
+    ``make_executor``'s plain version; CUDA tensors launch the kernel on
+    the current stream.  Any other device, dtype, shape or layout raises,
+    and so does an O outside [1, MAX_O] on the card."""
+    if not isinstance(lit, torch.Tensor):
+        raise TypeError(f"lit: expected a torch.Tensor, got {type(lit)}")
+    if lit.dim() != 2:
+        raise ValueError(f"lit: shape {tuple(lit.shape)}, expected [B, L]")
+    dev = lit.device
+    B, O = lit.shape
+    check_operand("lit", lit, (B, O), dev, torch.uint8)
+    ws = _check_window(window, B, dev)
+    W = window.shape[1]
+    if not isinstance(ll, torch.Tensor) or ll.dim() != 2:
+        raise ValueError("ll: expected an int32 tensor [B, S]")
+    S = ll.shape[1]
+    for name, t in (("ll", ll), ("ml", ml), ("off", off)):
+        check_operand(name, t, (B, S), dev, torch.int32)
+    for name, t in (("n_seq", n_seq), ("last_lit", last_lit),
+                    ("out_len", out_len)):
+        check_operand(name, t, (B,), dev, torch.int64)
+    if dev.type == "cpu":
+        return make_executor(B, S, O, W, O)(lit, window, ll, ml, off, n_seq,
+                                            last_lit, out_len)
+    check_cuda(dev)
+    if not 0 < O <= MAX_O:
+        raise ValueError(f"O {O}: the kernel takes 1 to {MAX_O}")
+    out = torch.empty((B, O), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return out
+    # written only by lanes that take the exact path (corrupt operands)
+    seg = torch.empty((B, 2, S + 1), dtype=torch.int64, device=dev)
+    code = torch.empty((B, O), dtype=torch.int32, device=dev)
+    search_rounds, jump_rounds = _rounds(S, O)
+    launch("lz_exec", dev, _build.load().zt_lz_exec, lit.data_ptr(), O,
+           window.data_ptr(), W, ws, ll.data_ptr(), ml.data_ptr(),
+           off.data_ptr(), S, n_seq.data_ptr(), last_lit.data_ptr(),
+           out_len.data_ptr(), out.data_ptr(), O, seg.data_ptr(),
+           code.data_ptr(), search_rounds, jump_rounds, B)
+    execute.launches += 1
+    return out
+
+
+execute.launches = 0
