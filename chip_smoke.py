@@ -33,22 +33,31 @@ Phases, each printed on its own line:
      and its serial floor: the window's longest lane alone, checked and
      timed through the raw launcher (``serial_floor_ms``);
   3. the same for the FSE kernel (``kernel_bench.fse_work``);
- 3b. lz_exec: the LZ executor kernel against its plain version, byte for
-     byte, on every operand set the decode plane hands ``execseq.execute``
-     (captured through ``kernel_bench.capture_exec``): the decode cell's 4
-     chunks [64, 24576], the rounds of the two 400 KB multi-block frames,
-     every chunk and round of both dictionary sets (set 2's 128 KB window
-     row broadcast with stride 0), and random corrupt operands; then the
-     A/B on the decode cell's chunks, in turns (plain, kernel, kernel,
-     plain; the plain version is ``make_executor``'s run called directly
-     on the same CUDA tensors), the serial floor (the cell's longest lane
-     alone) and the bound (``kernel_bench.lz_work``);
+ 3b. lz_exec: the LZ executor kernel against its plain versions, its rows
+     byte for byte and its per-lane flags, on every operand set the decode
+     plane hands ``execseq.execute`` (captured through
+     ``kernel_bench.capture_exec``): the decode cell's 4 chunks [64,
+     24576], the rounds of the two 400 KB multi-block frames, every chunk
+     and round of both dictionary sets (set 2's 128 KB window row
+     broadcast with stride 0), none of which flags a lane, and random
+     corrupt operands; then the A/B on the decode cell's chunks, in turns
+     (plain, kernel, kernel, plain; the plain version is ``make_executor``'s
+     run and ``lane_flags`` called directly on the same CUDA tensors),
+     printed beside the kernel's time without the flags, the serial
+     floor (the cell's longest lane alone) and the bound
+     (``kernel_bench.lz_work``);
+ 3c. corrupt frames: 8 records of 6,000 B at level 9 without a checksum,
+     300 trials from random.Random(7) each flipping 1-4 bits of one frame:
+     ``decode_batch_device(materialize=True)`` raises wherever the host
+     ``decompress`` raises and otherwise returns the host's bytes;
   4. decode end to end: decoded bytes equal the inputs, none of the 256
      records is routed to the host, both decode kernels and the LZ
      executor kernel were launched;
   5. decode timings (printed, not asserted): each kernel and its plain
      version, the pipeline's end-to-end and marginal GB/s and its stage
-     times, and the host decoder on the same frames;
+     times, and the host decoder on the same frames, through its route
+     (``native.host_route()``: the ``_ztpy`` extension where it builds) and
+     once more through ctypes with the extension off;
   6. the histogram kernel against its plain torch version on the encode
      workload's literal rows (the first chunk's [32, 16384] with their
      prefix masks) and on an unmasked 1-D vector of odd length, timed
@@ -311,19 +320,26 @@ def _lz_phase(frames, mb_frames, big, dev, card):
     _check(any(a[1].shape[1] == 1 << 17 and a[1].stride(0) == 0
                for a in groups["dictionary corpus"]),
            "set 2 runs its 128 KB window row broadcast to the lanes")
-    err, shapes = 0.0, {}
+    err, shapes, flagged = 0.0, {}, {}
     for name, calls in groups.items():
         _check(calls, f"{name}: the decode plane called execute")
+        flagged[name] = 0
         for args in calls:
-            got = execute(*args)
+            got, bad = execute(*args)
             torch.cuda.synchronize()
-            want = lz_plain(args)
+            want, want_bad = lz_plain(args)
             torch.cuda.synchronize()
             err = max(err, float((got.long() - want.long()).abs().max()))
+            _check(torch.equal(bad, want_bad),
+                   f"{name}: lz_exec kernel's flags equal the plain version's")
+            flagged[name] += int((bad != 0).sum())
+        _check(name == "corrupt" or flagged[name] == 0,
+               f"{name}: valid frames flag no lane ({flagged[name]})")
         shapes[name] = sorted({(tuple(a[0].shape), a[2].shape[1],
                                 a[1].shape[1], a[1].stride(0))
                                for a in calls})
     _check(err == 0.0, "lz_exec kernel equals its plain version")
+    _check(flagged["corrupt"] > 0, "corrupt operands flag lanes")
 
     # A/B on the decode cell's chunks, in turns: plain, kernel, kernel, plain
     k_ms, p_ms, b_ms = [], [], []
@@ -338,7 +354,8 @@ def _lz_phase(frames, mb_frames, big, dev, card):
     args = max(cell, key=lambda a: int(a[5].max()))
     longest = int(torch.argmax(args[5]))
     lane = [a[longest:longest + 1] for a in args]
-    _check(torch.equal(execute(*lane), lz_plain(lane)),
+    _check(all(torch.equal(a, b) for a, b in zip(execute(*lane),
+                                                  lz_plain(lane))),
            "lz_exec kernel equals its plain version on the longest lane")
     floor_ms = _gpu_ms(lambda: execute(*lane), 20)
     n_max, seqs = int(lane[5][0]), [int(a[5].clamp(min=0).sum())
@@ -346,10 +363,13 @@ def _lz_phase(frames, mb_frames, big, dev, card):
     ms, plain_ms = sum(k_ms) / 4, sum(p_ms) / 4
     bound_ms = sum(b for b, _ in b_ms) / 4
     print(f"phase lz_exec: kernel == plain on {sum(map(len, groups.values()))}"
-          f" calls (max_abs_err {err}): "
+          f" calls (max_abs_err {err}; flags equal, flagged lanes "
+          f"{flagged}): "
           f"{ {k: len(v) for k, v in groups.items()} } calls of (lit shape, "
           f"S, W, window row stride) {shapes}; decode cell chunks "
-          f"({seqs} sequences): kernel {[round(x, 4) for x in k_ms]} ms, "
+          f"({seqs} sequences): kernel with the flags "
+          f"{[round(x, 4) for x in k_ms]} ms (the kernel without them: "
+          f"0.1874-0.1916 ms on NVIDIA H100 80GB HBM3, 700 W, PERF.md), "
           f"plain {[round(x, 3) for x in p_ms]} ms (turns plain, kernel, "
           f"kernel, plain; CUDA events), bound "
           f"{[round(b, 5) for b, _ in b_ms]} ms ({b_ms[0][1]}); serial "
@@ -360,6 +380,55 @@ def _lz_phase(frames, mb_frames, big, dev, card):
             "bound_ms": bound_ms, "bound_by": b_ms[0][1], "library_ms": None,
             "serial_floor_ms": floor_ms, "ms_chunks": k_ms,
             "plain_ms_chunks": p_ms}
+
+
+def _corrupt_phase(data, dev, card):
+    """Phase 3c: frames the host decoder rejects raise on the device plane
+    too.  8 records of 6,000 B at level 9 (no checksum, so only the
+    executor's flags can catch a corrupt body), 300 trials each flipping
+    1-4 bits of one frame (random.Random(7))."""
+    import random
+
+    from zstdsharp_tpu_torch.decode import device_pipeline as dp
+    from zstdsharp_tpu_torch.decode.frame import decompress
+    from zstdsharp_tpu_torch.encode.frame import compress
+    from zstdsharp_tpu_torch.errors import ZstdError, ZstdErrorCode
+
+    recs = [data[i * 6000:(i + 1) * 6000] for i in range(8)]
+    frames = [compress(r, 9) for r in recs]
+    results, _ = dp.decode_batch_device(frames, dev, materialize=True)
+    _check(results == recs, "the unmutated batch decodes byte-exact")
+    rng = random.Random(7)
+    n = {"accepted": 0, "rejected": 0, "flagged": 0}
+    for _ in range(300):
+        fi = rng.randrange(8)
+        f = bytearray(frames[fi])
+        for _ in range(rng.randint(1, 4)):
+            f[rng.randrange(len(f))] ^= 1 << rng.randrange(8)
+        batch = frames[:fi] + [bytes(f)] + frames[fi + 1:]
+        try:
+            want = decompress(bytes(f))
+        except ZstdError:
+            want = None
+        try:
+            got, _ = dp.decode_batch_device(batch, dev, materialize=True)
+        except ZstdError as e:
+            _check(want is None, f"frame {fi} raised ({e}) where the host "
+                   "decoder accepts it")
+            n["rejected"] += 1
+            n["flagged"] += (e.code == ZstdErrorCode.corruption_detected
+                             and str(e).startswith(f"frame {fi}: "))
+            continue
+        _check(want is not None, f"frame {fi} decoded where the host "
+               "decoder raises")
+        _check(got[fi] == want and got[:fi] + got[fi + 1:]
+               == recs[:fi] + recs[fi + 1:], "accepted trial's bytes")
+        n["accepted"] += 1
+    _check(n["rejected"] > 0 and n["flagged"] > 0, f"trials {n}")
+    print(f"phase corrupt frames: 300 trials over 8 x 6000 B level-9 "
+          f"frames: the device plane raised wherever the host decompress "
+          f"raised and returned its bytes elsewhere: {n} (flagged: raised "
+          f"by the executor's flags, the rest by the host route) on {card}")
 
 
 def _kernel_wrappers():
@@ -1044,7 +1113,7 @@ def main() -> int:
     print(card)
 
     from zstdsharp_tpu_torch.decode.frame import decompress
-    from zstdsharp_tpu_torch import _build
+    from zstdsharp_tpu_torch import _build, native
     from zstdsharp_tpu_torch.decode import device_pipeline as dp
     from zstdsharp_tpu_torch.decode.frame import Decompressor
     from zstdsharp_tpu_torch.kernel_bench import fse_work, huf_work
@@ -1079,6 +1148,7 @@ def main() -> int:
     fse = _kernel_phase("fse_decode", df, fops, lambda o: o, "nseq",
                         fse_work, card)
     lz = _lz_phase(frames, extra_frames[:2], big, dev, card)
+    _corrupt_phase(data, dev, card)
 
     # ---- the decode path, once, through the user entry point ----
     all_in = recs + extras
@@ -1116,13 +1186,25 @@ def main() -> int:
     e2e = sorted(_timed(run_pipeline) for _ in range(3))[1]
     stages = {}
     dp.decode_batch_device(frames, dev, timings=stages)
-    host_s = _timed(lambda: [decompress(f) for f in frames])
+    route = native.host_route()
+    host_s = sorted(_timed(lambda: [decompress(f) for f in frames])
+                    for _ in range(5))[2]
+    real_ext = native.get_ext
+    native.get_ext = lambda: None  # the ctypes route, in the same process
+    try:
+        _check(native.host_route() == "ctypes", "the extension is off")
+        ctypes_s = sorted(_timed(lambda: [decompress(f) for f in frames])
+                          for _ in range(5))[2]
+    finally:
+        native.get_ext = real_ext
     print(f"phase timings: pipeline {payload} B in {N_RECORDS} frames: "
           f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} ms), "
           f"marginal {payload / marg / 1e9:.4f} GB/s ({marg * 1e3:.2f} ms); "
           f"stages ms { {k: round(v * 1e3, 3) for k, v in stages.items()} }; "
-          f"host decompress {payload / host_s / 1e9:.4f} GB/s "
-          f"({host_s * 1e3:.2f} ms) on {card}")
+          f"host decompress (route {route}) {payload / host_s / 1e9:.4f} "
+          f"GB/s ({host_s * 1e3:.2f} ms), through ctypes with the extension "
+          f"off {payload / ctypes_s / 1e9:.4f} GB/s ({ctypes_s * 1e3:.2f} "
+          f"ms), medians of 5 on {card}")
 
     hist, hist_launches = _encode_phases(data, dev, card)
     launches["histogram"] = hist_launches

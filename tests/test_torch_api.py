@@ -167,6 +167,64 @@ def test_multiframe_workers_round_trip():
 
 
 # ---------------------------------------------------------------------------
+# the host codec's two routes: the _ztpy extension and ctypes
+# ---------------------------------------------------------------------------
+
+
+def _use_route(monkeypatch, route):
+    """Run the test through `route`: "ztpy" needs the extension built here
+    (this host has Python's headers); "ctypes" forces it off."""
+    from zstdsharp_tpu_torch import native
+
+    if route == "ctypes":
+        monkeypatch.setattr(native, "get_ext", lambda: None)
+    assert native.host_route() == route
+
+
+def _corrupt_frames():
+    """Truncated and bit-flipped bodies of _DFRAMES' frames (seeded)."""
+    r = np.random.default_rng(12)
+    out = {}
+    for name in ("plain", "checksum"):
+        f = _DFRAMES[name]
+        out[f"{name}_cut_header"] = f[:8]
+        out[f"{name}_cut_half"] = f[:len(f) // 2]
+        for k, pos in enumerate(r.integers(10, len(f) - 5, 6)):
+            g = bytearray(f)
+            g[int(pos)] ^= 1 << int(r.integers(0, 8))
+            out[f"{name}_flip{k}"] = bytes(g)
+    return out
+
+
+_ROUTE_FRAMES = {**_DFRAMES, **_corrupt_frames()}
+
+
+@pytest.mark.parametrize("route", ["ztpy", "ctypes"])
+@pytest.mark.parametrize("name", sorted(_ROUTE_FRAMES))
+def test_decompress_routes_equal_reference(route, name, monkeypatch):
+    """decompress through either route: the reference's bytes (as bytes)
+    or its ZstdErrorCode, on valid, truncated and corrupt frames."""
+    _use_route(monkeypatch, route)
+    f = _ROUTE_FRAMES[name]
+    got = _same(lambda: Z.decompress(f), lambda: R.decompress(f))
+    assert got is None or type(got) is bytes
+
+
+@pytest.mark.parametrize("route", ["ztpy", "ctypes"])
+@pytest.mark.parametrize("level", [-5, 1, 3, 9, 19])
+def test_compress_routes_equal_reference(route, level, monkeypatch):
+    """compress through either route (the exact encoder's levels 1, 3 and
+    19 reach compress_exact) gives the reference's frames."""
+    _use_route(monkeypatch, route)
+    for size in (0, 100, 5000, 200_000):
+        data = _text(size, seed=size)
+        for checksum in (False, True):
+            f = _same(lambda: Z.compress(data, level, checksum),
+                      lambda: R.compress(data, level, checksum))
+            assert type(f) is bytes and Z.decompress(f) == data
+
+
+# ---------------------------------------------------------------------------
 # Compressor and Decompressor
 # ---------------------------------------------------------------------------
 

@@ -432,13 +432,16 @@ def test_dictionary_kernels_equal_plain(cuda):
 
 def _lz_equal_plain(args):
     """Launch the LZ executor kernel once on `args`, synchronise (a fault
-    raises here), hold it byte for byte against the plain version."""
+    raises here), hold its rows byte for byte and its flags against the
+    plain versions.  Returns the flags."""
     before = ex.execute.launches
-    got = ex.execute(*args)
+    got, bad = ex.execute(*args)
     torch.cuda.synchronize()
     assert ex.execute.launches == before + 1
-    want = lz_plain(args)
+    want, want_bad = lz_plain(args)
     assert got.shape == want.shape and torch.equal(got, want)
+    assert bad.dtype == torch.int32 and torch.equal(bad, want_bad)
+    return bad
 
 
 def test_lz_exec_decode_cell_chunks(cuda):
@@ -451,7 +454,7 @@ def test_lz_exec_decode_cell_chunks(cuda):
     assert len(calls) == 4 and {a[0].shape[1] for a in calls} == {n}
     assert max(int(a[5].max()) for a in calls) > 1000
     for args in calls:
-        _lz_equal_plain(args)
+        assert not _lz_equal_plain(args).any()
 
 
 def test_lz_exec_multi_block_rounds(cuda):
@@ -462,7 +465,7 @@ def test_lz_exec_multi_block_rounds(cuda):
     calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
     assert len(calls) >= 3 and {a[0].shape[1] for a in calls} == {1 << 17}
     for args in calls:
-        _lz_equal_plain(args)
+        assert not _lz_equal_plain(args).any()
 
 
 def test_lz_exec_dictionary_window_row(cuda):
@@ -478,7 +481,7 @@ def test_lz_exec_dictionary_window_row(cuda):
     assert any(a[1].shape[1] == 1 << 17 and a[1].stride(0) == 0
                for a in calls)
     for args in calls:
-        _lz_equal_plain(args)
+        assert not _lz_equal_plain(args).any()
 
 
 @pytest.mark.parametrize("B,S,O,W,broadcast,seed", [
@@ -489,10 +492,10 @@ def test_lz_exec_dictionary_window_row(cuda):
     (64, 4096, 24576, 8, False, 5)])
 def test_lz_exec_random_corrupt_operands(cuda, B, S, O, W, broadcast, seed):
     """Corrupt operands give the plain version's bytes (chains, pool
-    references below index 0, positions past O, cycles) and no illegal
-    address."""
+    references below index 0, positions past O, cycles) and flags, and no
+    illegal address."""
     rng = np.random.default_rng(seed)
-    _lz_equal_plain(lz_corrupt(rng, B, S, O, W, cuda, broadcast))
+    assert _lz_equal_plain(lz_corrupt(rng, B, S, O, W, cuda, broadcast)).any()
 
 
 def test_lz_exec_largest_shapes(cuda):
@@ -521,9 +524,54 @@ def test_lz_exec_largest_shapes(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (
         rng.integers(0, 256, (B, O), dtype=np.uint8),
         rng.integers(0, 256, (B, W), dtype=np.uint8), ll, ml, off, n_seq,
-        np.full(B, 40, np.int64), np.full(B, O, np.int64))]
+        np.full(B, 40, np.int64), np.full(B, O, np.int64),
+        np.zeros(B, np.int64))]
     assert int(args[5].min()) > 1000
     _lz_equal_plain(args)
+
+
+def test_lz_exec_flags_on_mutated_batch(cuda):
+    """Frames libzstd would reject, made on this host: 8 records of 6,000 B
+    of make_corpus at level 9 (the port's compress, no checksum), 300
+    trials from random.Random(7) each flipping 1-4 bits of one frame.  On
+    every operand set the decode plane gives the executor, the kernel's
+    flags equal the plain version's; decode_batch_device(materialize=True)
+    raises wherever the host decompress raises, and otherwise returns the
+    host's bytes."""
+    import random
+
+    from zstdsharp_tpu_torch.errors import ZstdError
+
+    data = _corpus(1 << 20)
+    recs = [data[i * 6000:(i + 1) * 6000] for i in range(8)]
+    frames = [compress(r, 9) for r in recs]
+    rng = random.Random(7)
+    flagged = rejected = 0
+    for _ in range(300):
+        fi = rng.randrange(8)
+        f = bytearray(frames[fi])
+        for _ in range(rng.randint(1, 4)):
+            f[rng.randrange(len(f))] ^= 1 << rng.randrange(8)
+        batch = frames[:fi] + [bytes(f)] + frames[fi + 1:]
+        try:
+            want = decompress(bytes(f))
+        except ZstdError:
+            want = None
+        try:
+            calls = capture_exec(lambda: dp.decode_batch_device(batch, cuda))
+        except ZstdError:  # a host-routed frame the host rejects
+            assert want is None
+            calls = []
+        for args in calls:
+            flagged += int(_lz_equal_plain(args).any())
+        if want is None:
+            rejected += 1
+            with pytest.raises(ZstdError):
+                dp.decode_batch_device(batch, cuda, materialize=True)
+        else:
+            got, _ = dp.decode_batch_device(batch, cuda, materialize=True)
+            assert got[fi] == want
+    assert rejected > 0 and flagged > 0
 
 
 @pytest.mark.parametrize("rate_log", [4, 7, 12])

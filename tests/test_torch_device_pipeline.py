@@ -521,3 +521,176 @@ def test_stage_timings_are_recorded():
     assert {"plan", "huf", "fse", "exec"} <= set(timings)
     assert all(v >= 0 for v in timings.values())
 
+
+
+# ---------------------------------------------------------------------------
+# corrupt frames: the executor's flags make the device plane reject what
+# libzstd rejects (ROADMAP Queue 3)
+
+MUT_TRIALS, MUT_PARTS = 300, 4
+
+
+@pytest.fixture(scope="module")
+def mutation_case():
+    """8 level-9 frames of 6,000 B of bench.make_corpus, without a
+    checksum (so only the flags can catch a corrupt body), and 300 trials
+    from random.Random(7): each flips 1-4 bits of one frame and records
+    libzstd's verdict, the decoded bytes or None."""
+    import random
+
+    from bench import make_corpus
+
+    data = make_corpus(1 << 20)
+    recs = [data[i * 6000:(i + 1) * 6000] for i in range(8)]
+    cctx = zstandard.ZstdCompressor(level=9, write_checksum=False)
+    frames = [cctx.compress(r) for r in recs]
+    dctx = zstandard.ZstdDecompressor()
+    rng = random.Random(7)
+    trials = []
+    for _ in range(MUT_TRIALS):
+        fi = rng.randrange(8)
+        f = bytearray(frames[fi])
+        for _ in range(rng.randint(1, 4)):
+            f[rng.randrange(len(f))] ^= 1 << rng.randrange(8)
+        try:
+            want = dctx.decompress(bytes(f), max_output_size=1 << 20)
+        except zstandard.ZstdError:
+            want = None
+        trials.append((fi, bytes(f), want))
+    return recs, frames, trials
+
+
+def test_mutation_case_frames_equal_reference(mutation_case):
+    """The unmutated batch: the port's rows equal the reference's and the
+    records, and nothing is flagged."""
+    recs, frames, _ = mutation_case
+    outs, lens, host = dp.decode_batch_device(frames, CPU)
+    r_outs, r_lens, r_host = ref.decode_batch_device(frames)
+    assert not host and not r_host and np.array_equal(lens, r_lens)
+    assert len(outs) == len(r_outs) == 1
+    assert np.array_equal(outs[0].numpy(), np.asarray(r_outs[0]))
+    assert _decode(frames) == (recs, {"device_frames": 8, "host_frames": 0})
+
+
+@pytest.mark.parametrize("part", range(MUT_PARTS))
+def test_mutated_frames_rejected_as_libzstd(mutation_case, part):
+    """Each trial decodes the batch with the mutated frame in its place:
+    where libzstd rejects the frame the port raises ZstdError (the host
+    route's error, or corruption_detected for a flagged lane), and where
+    libzstd accepts it the port returns libzstd's bytes for it and the records
+    for the others."""
+    recs, frames, trials = mutation_case
+    n = MUT_TRIALS // MUT_PARTS
+    rejected = 0
+    for fi, mutated, want in trials[part * n:(part + 1) * n]:
+        batch = list(frames)
+        batch[fi] = mutated
+        if want is None:
+            rejected += 1
+            with pytest.raises(ZstdError):
+                _decode(batch)
+        else:
+            results, _ = _decode(batch)
+            assert results[fi] == want
+            assert results[:fi] + results[fi + 1:] == recs[:fi] + recs[fi + 1:]
+    assert rejected > 0
+
+
+def test_flagged_frame_names_its_checks(mutation_case):
+    """A frame that the planner takes and libzstd rejects is flagged: the
+    error names the frame and the failed checks, and the device-resident
+    return (not checked, as in the reference) still gives rows."""
+    recs, frames, trials = mutation_case
+    for fi, mutated, want in trials:
+        batch = list(frames)
+        batch[fi] = mutated
+        plan = dp.plan_batch(batch)
+        dp._release_ops(plan.nb, None)
+        if want is None and not plan.host_routed:
+            break
+    else:
+        pytest.fail("no trial reaches the device and is rejected")
+    with pytest.raises(ZstdError) as ei:
+        _decode(batch)
+    assert ei.value.code == ZstdErrorCode.corruption_detected
+    assert str(ei.value).startswith(f"frame {fi}: ")
+    assert any(why in str(ei.value) for _, why in dp._FLAG_REASONS)
+    outs, lens, host = dp.decode_batch_device(batch, CPU)
+    assert not host and len(lens) == 8
+
+
+def test_decompress_data_parallel_raises_as_decompress(mutation_case):
+    """The stream decoder decodes every single-block frame through
+    decode_batch_device(materialize=True), so a stream that decompress
+    rejects raises there too, where the parent returned wrong bytes."""
+    from zstdsharp_tpu_torch.decode.frame import decompress
+    from zstdsharp_tpu_torch.parallel.pipeline import (
+        decompress_data_parallel)
+
+    recs, frames, trials = mutation_case
+    assert decompress_data_parallel(b"".join(frames), ["cpu"]) == \
+        b"".join(recs)
+    caught = 0
+    for fi, mutated, want in trials[:60]:
+        if want is not None or dp.scan_eligibility([mutated]):
+            continue
+        stream = b"".join(frames[:fi] + [mutated] + frames[fi + 1:])
+        with pytest.raises(ZstdError):
+            decompress(stream)
+        with pytest.raises(ZstdError):
+            decompress_data_parallel(stream, ["cpu"])
+        caught += 1
+    assert caught > 0
+
+
+def _flags_of(run):
+    """Every lane flag the decode plane computes in run(), from the
+    executor's operands (``lane_flags``; the rows are not executed)."""
+    from zstdsharp_tpu_torch.ops.execseq import lane_flags
+
+    seen = []
+
+    def spy(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len):
+        seen.append(lane_flags(ll, ml, off, n_seq, last_lit, out_len,
+                               win_len))
+        return torch.zeros_like(lit), seen[-1]
+
+    real = dp.execute
+    dp.execute = spy
+    try:
+        run()
+    finally:
+        dp.execute = real
+    assert seen
+    return torch.cat(seen)
+
+
+@pytest.mark.parametrize("name", ["json", "corpus", "bench", "multiblock"])
+def test_valid_frames_flag_nothing(name):
+    """Every frame of both committed dictionary sets (set 2 holds 8
+    multi-block frames whose blocks reach the dictionary), the bench's
+    decode batch (256 x 24 KB of make_corpus at level 9) and multi-block
+    frames without a dictionary (their window the frame's): no lane is
+    flagged."""
+    ddict = None
+    if name in ("json", "corpus"):
+        d, frames, _ = dict_sets.load(name)
+        ddict = parse_dictionary(d)
+    elif name == "bench":
+        from bench import make_corpus
+
+        data = make_corpus(6 << 20)
+        frames = [zstandard.ZstdCompressor(level=9).compress(
+            data[i:i + (24 << 10)]) for i in range(0, 6 << 20, 24 << 10)]
+    else:
+        recs = [_records(1, n, seed=s)[0] for n, s in
+                ((300_000, 61), (140_000, 62), (600_000, 63))]
+        frames = [compress(recs[0], 3),
+                  zstandard.ZstdCompressor(level=5).compress(recs[1]),
+                  zstandard.ZstdCompressor(level=19).compress(recs[2])]
+    plan = dp.plan_batch(frames, ddict)
+    dp._release_ops(plan.nb, None)
+    assert not plan.host_routed
+    assert (len(plan.mb_frames) > 0) == (name in ("corpus", "multiblock"))
+    bad = _flags_of(lambda: dp.decode_batch_device(frames, CPU, ddict=ddict))
+    assert not bad.any()

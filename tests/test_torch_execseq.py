@@ -6,7 +6,11 @@ negative int32, and out_len zeroing.  Outputs are bytes and must be equal.
 ``execute`` (the decode plane's entry) is held on its plain path against
 the reference and against ``walk``, a numpy walker written here that
 follows csrc/lz_exec.cu's algorithm, so the kernel's algorithm is checked
-on the CPU although the CUDA cannot run here:
+on the CPU although the CUDA cannot run here.  Its per-lane flags
+(``lane_flags``: libzstd's literal-overrun, content-size and offset
+checks) are held against ``flags``, a numpy loop over each lane's
+sequences written here, on hand-made operands for each bit and on every
+case above:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_execseq.py -q
 """
@@ -18,7 +22,8 @@ import pytest
 import torch
 
 from zstdsharp_tpu.ops.execseq import get_executor
-from zstdsharp_tpu_torch.ops.execseq import execute, make_executor
+from zstdsharp_tpu_torch.ops.execseq import (execute, lane_flags,
+                                             make_executor)
 
 B, S, L, W, O = 6, 48, 1024, 64, 2048
 
@@ -295,12 +300,36 @@ EXEC_CASES = ([f"seed{i}" for i in range(1, 8)]
                  "negative_last_lit", "out_len_short", "out_len_long"])
 
 
-def _torch_args(args, broadcast):
-    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+def _torch_args(args, broadcast, win_len=None):
+    """`args` as execute's operands, win_len (default 0 a lane) last."""
+    if win_len is None:
+        win_len = np.zeros(args[0].shape[0], np.int64)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (*args, win_len)]
     if broadcast:
         t[1] = t[1].expand(args[0].shape[0], -1)
         assert t[1].stride(0) == 0
     return t
+
+
+def flags(ll, ml, off, n_seq, last_lit, out_len, win_len):
+    """libzstd's checks, lane by lane over its live sequences: bit 0 the
+    literal lengths overrun the section (last_lit < 0), bit 1 the output
+    is not out_len long, bit 2 an offset is 0 or reaches past the bytes
+    produced before its match plus win_len.  ll/ml/off as u32."""
+    B, Sn = ll.shape
+    out = np.zeros(B, np.int32)
+    for b in range(B):
+        u = [a[b].astype(np.int64) & 0xFFFFFFFF for a in (ll, ml, off)]
+        pos, reach = 0, False
+        for k in range(min(max(int(n_seq[b]), 0), Sn)):
+            ms = pos + int(u[0][k])
+            o = int(u[2][k])
+            reach |= o == 0 or o > ms + int(win_len[b])
+            pos = ms + int(u[1][k])
+        out[b] = (int(last_lit[b] < 0)
+                  | int(pos + int(last_lit[b]) != int(out_len[b])) << 1
+                  | int(reach) << 2)
+    return out
 
 
 @pytest.mark.parametrize("name", EXEC_CASES)
@@ -314,8 +343,11 @@ def test_execute_equals_reference_and_walker(name):
     if broadcast:
         window = np.broadcast_to(window, (lit.shape[0], window.shape[1]))
     dense = (lit, window, *args[2:])
-    got = execute(*_torch_args(args, broadcast))
+    win_len = np.arange(B, dtype=np.int64) * 40
+    got, bad = execute(*_torch_args(args, broadcast, win_len))
     assert got.dtype == torch.uint8 and tuple(got.shape) == (B, O)
+    assert bad.dtype == torch.int32 and tuple(bad.shape) == (B,)
+    assert np.array_equal(bad.numpy(), flags(*args[2:], win_len))
     got = got.numpy()
     cycles = []
     assert np.array_equal(walk(*dense, O, cycles), got)
@@ -363,14 +395,17 @@ def test_walker_equals_plain_on_corrupt_operands(seed, regular):
     """The reference loops for ever on a cycle and sums ll + ml in int32,
     so on these operands the plain version is the definition."""
     args, o = _corrupt(seed, regular)
-    got = execute(*_torch_args(args, False)).numpy()
-    assert np.array_equal(walk(*args, o), got)
+    win_len = np.random.default_rng(seed).integers(-5, 300, 4)
+    got, bad = execute(*_torch_args(args, False, win_len))
+    assert np.array_equal(walk(*args, o), got.numpy())
+    assert np.array_equal(bad.numpy(), flags(*args[2:], win_len))
 
 
 @pytest.mark.parametrize("case", ["lit_rank", "ll_rows", "out_len_shape",
                                   "ll_dtype", "n_seq_dtype", "lit_dtype",
                                   "window_stride", "window_rows",
-                                  "mixed_device", "meta_device"])
+                                  "mixed_device", "meta_device",
+                                  "win_len_dtype"])
 def test_execute_raises(case):
     t = _torch_args(_exec_case("seed4")[0], False)
     err = ValueError
@@ -392,7 +427,87 @@ def test_execute_raises(case):
         t[1] = t[1][:-1]
     elif case == "mixed_device":
         t[3] = t[3].to("meta")
+    elif case == "win_len_dtype":
+        t[8], err = t[8].int(), TypeError
     else:
         t = [x.to("meta") for x in t]
     with pytest.raises(err):
         execute(*t)
+
+
+# ---------------------------------------------------------------------------
+# the flags on hand-made operands: one lane a case, the others valid
+
+
+def _valid_lanes():
+    """Operands of B valid lanes (every flag clear with win_len 0): 5
+    literals, then matches reaching only bytes already produced, out_len
+    their exact total."""
+    rng = np.random.default_rng(50)
+    lit = rng.integers(0, 256, (B, O), dtype=np.uint8)
+    window = rng.integers(0, 256, (B, 64), dtype=np.uint8)
+    ll = np.zeros((B, S), np.int32)
+    ml = np.zeros((B, S), np.int32)
+    off = np.ones((B, S), np.int32)
+    n_seq = np.full(B, 6, np.int64)
+    for b in range(B):
+        pos = 0
+        for k in range(6):
+            ll[b, k] = 5 if k == 0 else k % 3
+            pos += int(ll[b, k])
+            off[b, k] = 1 + (b + k) % pos
+            ml[b, k] = 3 + k
+            pos += int(ml[b, k])
+    last_lit = np.full(B, 4, np.int64)
+    lit_total = ll.astype(np.int64).sum(1) + last_lit
+    out_len = lit_total + ml.astype(np.int64).sum(1)
+    return [lit, window, ll, ml, off, n_seq, last_lit, out_len]
+
+
+@pytest.mark.parametrize("case,bits", [
+    ("valid", 0), ("negative_last_lit", 0b011), ("long_output", 0b010),
+    ("short_output", 0b010), ("offset_past_output", 0b100),
+    ("offset_zero", 0b100), ("offset_u32", 0b100),
+    ("offset_into_window", 0), ("offset_past_window", 0b100),
+    ("dead_sequence", 0), ("n_seq_past_S", 0b100)])
+def test_flags_on_hand_made_operands(case, bits):
+    """Lane 2 is changed so that exactly `bits` are set; every other lane
+    stays valid and flags nothing.  The bytes stay the executor's: equal
+    to the reference's get_executor on the same operands."""
+    args = _valid_lanes()
+    win_len = np.zeros(B, np.int64)
+    ll, ml, off, n_seq, last_lit, out_len = args[2:]
+    b = 2
+    if case == "negative_last_lit":      # literals past the section
+        last_lit[b] = -3
+    elif case == "long_output":          # the content size says more
+        out_len[b] += 1
+    elif case == "short_output":
+        out_len[b] -= 2
+    elif case == "offset_past_output":   # one byte further than produced
+        off[b, 3] = int(ll[b, :3].sum() + ml[b, :3].sum() + ll[b, 3]) + 1
+    elif case == "offset_zero":          # libzstd's offset -1
+        off[b, 1] = 0
+    elif case == "offset_u32":           # 2^31 + 7: negative as int32
+        off[b, 4] = np.int32(-(2 ** 31) + 7)
+    elif case in ("offset_into_window", "offset_past_window"):
+        win_len[b] = 64                  # 64 real bytes before the lane
+        reach = int(ll[b, :3].sum() + ml[b, :3].sum() + ll[b, 3])
+        off[b, 3] = reach + (64 if case == "offset_into_window" else 65)
+    elif case == "dead_sequence":        # past n_seq: never checked
+        off[b, 6], ml[b, 6] = 0, 9
+    elif case == "n_seq_past_S":         # every row live, the last included
+        n_seq[b] = S + 5
+        off[b, S - 1] = 0
+    want = np.zeros(B, np.int32)
+    want[b] = bits
+    assert np.array_equal(flags(*args[2:], win_len), want)
+    t = _torch_args(args, False, win_len)
+    got, bad = execute(*t)
+    assert np.array_equal(bad.numpy(), want)
+    assert torch.equal(lane_flags(*t[2:]), bad)
+    ref = (args[0], args[1], *(a.view(np.uint32) for a in args[2:5]),
+           *args[5:])
+    ref_out = np.asarray(get_executor(B, S, O, 64, O)(
+        *(jnp.asarray(a) for a in ref)))
+    assert np.array_equal(got.numpy(), ref_out)

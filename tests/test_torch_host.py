@@ -693,3 +693,70 @@ def test_scan_eligibility_with_dictionary_equals_reference(single_block_only):
             frames, rdict.parse_dictionary(data),
             single_block_only=single_block_only)
         assert (got != plain) == (data is _DICT)
+
+
+# ---------------------------------------------------------------------------
+# the _ztpy extension: built into build/host, never under native/
+# ---------------------------------------------------------------------------
+
+
+def _native_listing():
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in native.SRC.parent.iterdir())
+
+
+def _fresh_ext_state(monkeypatch, tmp_path):
+    """get_ext as on first use, building into tmp_path."""
+    native.get_lib()
+    monkeypatch.setattr(native, "_ext", None)
+    monkeypatch.setattr(native, "_ext_tried", False)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "host")
+
+
+def test_extension_builds_into_build_dir(monkeypatch, tmp_path):
+    """A first get_ext compiles native/ztpy.cpp against this host's Python
+    headers into BUILD_DIR (build/host by default), linked to the engine
+    file the ctypes binding loaded; native/ is left as it was.  The
+    extension decodes and encodes as the ctypes route does."""
+    assert native.BUILD_DIR == native.SRC.parent.parent / "build" / "host"
+    before = _native_listing()
+    _fresh_ext_state(monkeypatch, tmp_path)
+    ext = native.get_ext()
+    assert ext is not None and native.host_route() == "ztpy"
+    built = native.ext_path(native._lib_file.resolve())
+    assert built.parent == tmp_path / "host" and built.exists()
+    assert built.name.startswith("_ztpy.") and built.name.endswith(
+        __import__("sysconfig").get_config_var("EXT_SUFFIX"))
+    assert ext.__file__ == str(built)
+    assert _native_listing() == before
+    data = _data(50_000)
+    f = enc.compress(data, 3)
+    assert ext.compress_exact(data, 3, False) == f
+    hdr = frame.parse_frame_header(f)
+    got, used = ext.decode_frame_body(f, hdr.header_size, len(data))
+    assert got == data and hdr.header_size + used == len(f)
+    want, _ = native.decode_frame_body(
+        np.frombuffer(f, np.uint8)[hdr.header_size:], len(data))
+    assert want.tobytes() == got
+
+
+@pytest.mark.parametrize("case", ["no_ext_env", "no_headers", "build_fails"])
+def test_extension_off_falls_back_to_ctypes(case, monkeypatch, tmp_path):
+    """ZSTDTPU_NO_EXT, missing Python headers or a failed build: get_ext
+    returns None, the route is ctypes and the codec's bytes are the
+    reference's."""
+    _fresh_ext_state(monkeypatch, tmp_path)
+    if case == "no_ext_env":
+        monkeypatch.setenv("ZSTDTPU_NO_EXT", "1")
+    elif case == "no_headers":
+        monkeypatch.setattr(native.sysconfig, "get_paths",
+                            lambda: {"include": str(tmp_path)})
+    else:
+        bad = tmp_path / "ztpy.cpp"
+        bad.write_text("this is not C++\n")
+        monkeypatch.setattr(native, "EXT_SRC", bad)
+    assert native.get_ext() is None and native.host_route() == "ctypes"
+    assert not list((tmp_path / "host").glob("_ztpy.*"))
+    f = _frame(9, 4096)
+    assert frame.decompress(f) == rframe.decompress(f) == _data(4096)
+    assert enc.compress(_data(4096), 3) == _frame(3, 4096)

@@ -7,7 +7,12 @@ and ``bench.make_corpus``, builds its kernels, checks that
 byte-exact with no frame routed to the host, and times it: the end-to-end
 ms of each of ``--reps`` calls (each ending in ``torch.cuda.synchronize``)
 and, over as many more calls, the stage times of
-``decode_batch_device(timings=)``.  Checkouts run in turns, A B B A for two
+``decode_batch_device(timings=)``, then the ms of ``--reps`` calls of
+``decode_batch_device(materialize=True)`` (the rows brought to the host
+and checked) and of the host decoder ``decompress`` over the same frames,
+with the checkout's host route (``native.host_route()``: "ztpy" or
+"ctypes"; a checkout without it has only ctypes).  Checkouts run in turns,
+A B B A for two
 (``--rounds`` times), so drift on the machine hits both alike.  The two
 committed dictionary sets of tests/torch_data/dict_sets.py (``json`` and
 ``corpus``) are decoded the same way in the same turn through
@@ -104,8 +109,26 @@ def child(tree: Path, reps: int) -> dict:
         torch.cuda.synchronize()
 
     e2e, stages = _time(run, reps)
+    from zstdsharp_tpu_torch import native
+    from zstdsharp_tpu_torch.decode.frame import decompress
+
+    def ms_of(fn):
+        fn()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    def materialize():
+        dp.decode_batch_device(frames, dev, materialize=True)
+
     out = {"tree": str(tree), "card": torch.cuda.get_device_name(0),
-           "e2e_ms": e2e, "stages_ms": stages}
+           "e2e_ms": e2e, "stages_ms": stages,
+           "materialize_ms": ms_of(materialize),
+           "host_route": getattr(native, "host_route", lambda: "ctypes")(),
+           "host_ms": ms_of(lambda: [decompress(f) for f in frames])}
     sys.path.insert(0, str(tree / "tests" / "torch_data"))
     import dict_sets as sets
 
@@ -130,10 +153,18 @@ def child(tree: Path, reps: int) -> dict:
 
 
 def _medians(r: dict) -> dict:
-    e2e = sorted(r["e2e_ms"])
-    return {"e2e_ms_median": e2e[len(e2e) // 2],
-            "stages_ms_median": {k: sorted(v)[len(v) // 2]
-                                 for k, v in r["stages_ms"].items()}}
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    out = {"e2e_ms_median": median(r["e2e_ms"]),
+           "stages_ms_median": {k: median(v)
+                                for k, v in r["stages_ms"].items()}}
+    for k in ("materialize_ms", "host_ms"):
+        if k in r:
+            out[f"{k}_median"] = median(r[k])
+    if "host_route" in r:
+        out["host_route"] = r["host_route"]
+    return out
 
 
 def main(argv=None) -> int:

@@ -20,6 +20,13 @@
 //     resolves to the last pool byte, a chain still unresolved after the
 //     pointer-jumping rounds (a cycle) to pool byte 0; positions at or past
 //     out_len take their literal source and are stored as zero.
+// It also writes each lane's flags, exactly as ops/execseq.py:lane_flags
+// computes them on any operands: bit 0 last_lit < 0; bit 1 the live ll
+// and ml (as u32) plus last_lit, summed in wrapping int64, differ from
+// out_len; bit 2 a live offset (as u32) is 0 or exceeds its match's
+// output position (the u32 sums before it) plus win_len.  These are
+// libzstd's checks in ZSTD_execSequence and ZSTD_decompressSequences, so
+// the decode plane rejects the blocks libzstd rejects.
 //
 // What bounds it on the H100.  Roofline: the call must write B x O output
 // bytes and read the literals, the window bytes and the 12 bytes of each
@@ -56,6 +63,12 @@
 //   finding its sequence by a binary search of the run starts.  Offsets
 //   are mostly longer than a few sequences, so a group holds several
 //   matches, and a tile costs a few barriers rather than one a sequence.
+// * The flags cost no pass of their own over a walked lane: each thread
+//   adds its sequence's ll + ml to a register and tests its offset against
+//   the run start the tile's scan already gave it; one block reduction at
+//   the end sums and ORs the threads' registers.  Only where the walk stops
+//   early (out_len reached before the last sequence, corrupt operands) or
+//   the lane takes the exact path is the rest scanned for the flags alone.
 // * Exact for any operand.  A lane with a negative live ll or ml, or a
 //   negative last_lit, has run starts that are not monotone: it takes the
 //   exact path, which is the plain version's algorithm inside the block
@@ -98,7 +111,7 @@ struct Lane {
   const int32_t* ll;   // [S]
   const int32_t* ml;
   const int32_t* off;
-  i64 L, P, S, O, n_seq, out_len;
+  i64 L, P, S, O, n_seq, out_len, wlen;  // wlen: win_len
   int32_t last;  // last_lit as int32
 };
 
@@ -115,6 +128,15 @@ __device__ __forceinline__ void ext(const Lane& z, i64 k, i64& l, i64& m,
   l = tail ? z.last : (real ? z.ll[k] : 0);
   m = real ? z.ml[k] : 0;
   o = real ? max(z.off[k], 1) : 1;
+}
+
+// Flag bit 2 for live sequence k whose match starts at output position
+// ms: its offset as u32 is 0 or reaches before the lane's window.
+__device__ __forceinline__ bool reach_bad(const Lane& z, i64 k, i64 ms) {
+  const uint32_t o = static_cast<uint32_t>(z.off[k]);
+  const i64 lim = static_cast<i64>(static_cast<unsigned long long>(ms) +
+                                   static_cast<unsigned long long>(z.wlen));
+  return o == 0 || static_cast<i64>(o) > lim;
 }
 
 // Exclusive block scan of (a, b) over the block's threads in order: ea, eb
@@ -169,22 +191,51 @@ __device__ __forceinline__ int last_le(const i64* a, int lo, int hi, i64 v) {
   return lo;
 }
 
+// The flags' scan over live sequences [k_from, K), the first of which
+// starts at output position rs: each thread adds its sequences' ll + ml
+// (as u32) to fsum and ORs bit 2 into fbad.
+__device__ void flag_scan(const Lane& z, i64 k_from, i64 rs, i64 K,
+                          i64& fsum, bool& fbad, i64* sh) {
+  for (i64 k0 = k_from; k0 < K; k0 += kThreads) {
+    const i64 k = k0 + threadIdx.x;
+    i64 l = 0, m = 0;
+    if (k < K) {
+      l = static_cast<uint32_t>(z.ll[k]);
+      m = static_cast<uint32_t>(z.ml[k]);
+    }
+    i64 ers, e2, tot, t2;
+    scan2(l + m, 0, ers, e2, tot, t2, sh);
+    if (k < K) {
+      fsum += l + m;
+      fbad |= reach_bad(z, k, rs + ers + l);
+    }
+    rs += tot;
+  }
+}
+
 // The in-order walk of a lane whose run starts are monotone: writes
 // row[0, oe) and returns false, or returns true (every thread alike) when
 // a match reads a position the walk has not finalised.  Per tile of
 // kThreads sequences: the scan, the tile's literal bytes (one a thread),
 // the barrier points (warp 0), then each group of matches between two
-// barriers, one output position a thread.
+// barriers, one output position a thread.  The flags of the live
+// sequences it reaches go into fsum and fbad; where it stops before the
+// last one, k_rest and rs_rest say where the flags' scan resumes.
 __device__ bool walk(const Lane& z, i64 oe, uint8_t* row, i64* t_rs,
                      i64* t_lb, i64* t_hi, int32_t* t_ll, int32_t* t_off,
-                     int32_t* t_g, int* t_ng, i64* sh) {
+                     int32_t* t_g, int* t_ng, i64* sh, i64& fsum, bool& fbad,
+                     i64& k_rest, i64& rs_rest) {
   const int tid = threadIdx.x, lane = tid & 31;
   const i64 K = z.n_seq < 0 ? 0 : min(z.n_seq, z.S);  // the last segment
   i64 rs_c = 0, lb_c = 0;
   bool redo = false;
   for (i64 k0 = 0; k0 <= K; k0 += kThreads) {
     if (__syncthreads_or(redo)) return true;
-    if (rs_c >= oe) break;
+    if (rs_c >= oe) {
+      k_rest = k0;
+      rs_rest = rs_c;
+      break;
+    }
     const int n = static_cast<int>(min(static_cast<i64>(kThreads),
                                        K + 1 - k0));
     i64 l = 0, m = 0, o = 1;
@@ -200,6 +251,10 @@ __device__ bool walk(const Lane& z, i64 oe, uint8_t* row, i64* t_rs,
       t_off[tid] = static_cast<int32_t>(o);
       // the end of the match's sources at or above 0; none: never a barrier
       t_hi[tid] = ms < me ? ms - o + min(me - ms, o) : INT64_MIN;
+      if (k0 + tid < K) {  // a live sequence (l, m >= 0: their u32 bits)
+        fsum += l + m;
+        fbad |= reach_bad(z, k0 + tid, ms);
+      }
     }
     const i64 lb0 = lb_c;
     const i64 tile_end = k0 + n - 1 == K ? oe : min(rs_c + tot_s, oe);
@@ -370,8 +425,9 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* __restrict__ off, i64 S,
                    const i64* __restrict__ n_seq,
                    const i64* __restrict__ last_lit,
-                   const i64* __restrict__ out_len, uint8_t* __restrict__ out,
-                   i64 O, i64 O16, i64* seg_scratch,
+                   const i64* __restrict__ out_len,
+                   const i64* __restrict__ win_len, uint8_t* __restrict__ out,
+                   i64 O, i64 O16, int32_t* __restrict__ bad, i64* seg_scratch,
                    int32_t* code_scratch, int search_rounds,
                    int jump_rounds) {
   extern __shared__ __align__(16) uint8_t row[];
@@ -395,6 +451,7 @@ __global__ void __launch_bounds__(kThreads)
   z.O = O;
   z.n_seq = n_seq[b];
   z.out_len = out_len[b];
+  z.wlen = win_len[b];
   z.last = static_cast<int32_t>(last_lit[b]);
   const i64 oe = z.out_len < 0 ? 0 : min(z.out_len, O);
 
@@ -403,10 +460,28 @@ __global__ void __launch_bounds__(kThreads)
   bool irregular = z.n_seq >= 0 && z.n_seq <= S && z.last < 0;
   for (i64 k = tid; k < nlive; k += kThreads)
     irregular |= (z.ll[k] < 0) | (z.ml[k] < 0);
+  i64 fsum = 0, k_rest = nlive, rs_rest = 0;
+  bool fbad = false;
   if (__syncthreads_or(irregular) ||
-      walk(z, oe, row, t_rs, t_lb, t_hi, t_ll, t_off, t_g, &t_ng, sh))
+      walk(z, oe, row, t_rs, t_lb, t_hi, t_ll, t_off, t_g, &t_ng, sh, fsum,
+           fbad, k_rest, rs_rest)) {
+    fsum = 0;
+    fbad = false;
+    k_rest = rs_rest = 0;
     exact(z, oe, row, seg_scratch + b * 2 * (S + 1), code_scratch + b * O,
           search_rounds, jump_rounds, sh);
+  }
+  // the flags: the rest of the live sequences, then one block reduction
+  flag_scan(z, k_rest, rs_rest, nlive, fsum, fbad, sh);
+  i64 e1, e2, tsum, tbad;
+  scan2(fsum, fbad ? 1 : 0, e1, e2, tsum, tbad, sh);
+  if (tid == 0) {
+    const i64 last = last_lit[b];
+    const i64 total = static_cast<i64>(static_cast<unsigned long long>(tsum) +
+                                       static_cast<unsigned long long>(last));
+    bad[b] = (last < 0 ? 1 : 0) | (total != z.out_len ? 2 : 0) |
+             (tbad > 0 ? 4 : 0);
+  }
 
   // the row, zeros past out_len, stored once
   for (i64 p = oe + tid; p < O16; p += kThreads) row[p] = 0;
@@ -424,16 +499,18 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // lit [b, L] u8, window rows of W bytes `ws` apart (0: one shared row),
-// ll/ml/off [b, S] int32, n_seq/last_lit/out_len [b] int64, out [b, O] u8;
+// ll/ml/off [b, S] int32, n_seq/last_lit/out_len/win_len [b] int64, out
+// [b, O] u8, bad [b] int32 (the lanes' flags);
 // seg_scratch int64 [b, 2, S+1] and code_scratch int32 [b, O], written only
 // by lanes that take the exact path.  Returns a cudaError_t.
 extern "C" int zt_lz_exec(const void* lit, long long L, const void* window,
                           long long W, long long ws, const void* ll,
                           const void* ml, const void* off, long long S,
                           const void* n_seq, const void* last_lit,
-                          const void* out_len, void* out, long long O,
-                          void* seg_scratch, void* code_scratch,
-                          int search_rounds, int jump_rounds, int b,
+                          const void* out_len, const void* win_len, void* out,
+                          long long O, void* bad, void* seg_scratch,
+                          void* code_scratch, int search_rounds,
+                          int jump_rounds, int b,
                           void* stream) {
   if (b <= 0 || O <= 0) return 0;
   if (L < 0 || W < 0 || L + W <= 0 || S < 0 || O > (1ll << 30) ||
@@ -453,7 +530,8 @@ extern "C" int zt_lz_exec(const void* lit, long long L, const void* window,
       W, ws, static_cast<const int32_t*>(ll), static_cast<const int32_t*>(ml),
       static_cast<const int32_t*>(off), S, static_cast<const i64*>(n_seq),
       static_cast<const i64*>(last_lit), static_cast<const i64*>(out_len),
-      static_cast<uint8_t*>(out), O, o16, static_cast<i64*>(seg_scratch),
+      static_cast<const i64*>(win_len), static_cast<uint8_t*>(out), O, o16,
+      static_cast<int32_t*>(bad), static_cast<i64*>(seg_scratch),
       static_cast<int32_t*>(code_scratch), search_rounds, jump_rounds);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,18 @@ execution through ``ops.execseq.execute`` (a hand-written CUDA kernel on
 a GPU, its plain torch version on the CPU).  Decoded rows stay on the
 device.
 
+Corrupt input.  Besides the rows, the executor flags each lane whose
+sequences libzstd would reject (literal lengths past the literal section,
+an output of another length than the frame's content size, an offset
+reaching before the bytes the block may read: ``execseq.lane_flags``).
+``decode_batch_device(materialize=True)`` -- and so
+``parallel.pipeline.decompress_data_parallel`` -- raises
+``corruption_detected`` for a flagged frame before it checks checksums,
+so a frame libzstd rejects never comes back as bytes.  The device-resident
+return (``materialize=False``) is not checked, as in the reference, which
+assumes trusted input on its device path: a caller that needs the check
+materializes.
+
 The host half is the port's own copy of the reference's: the native
 planner (``zt_dplane_*`` in native/zstdtpu_core.cpp, bound by the port's
 ``native``) packs lane-major operands into pooled numpy buffers
@@ -797,9 +809,10 @@ def _fused_decode(meta, huf_flat, huf_T, fse_rows, fse_T, h_rows, raw_flat,
                   window, S, L):
     """Per-lane metadata + kernel outputs -> decoded bytes [B, L] uint8
     (reference _fused_decode with its L = O: the literal rows are as wide
-    as the output).  meta [B, 11] int64: lit_kind, pool_base, pool_len,
+    as the output).  meta [B, 12] int64: lit_kind, pool_base, pool_len,
     huf_lane0, huf_seg, seq_kind, fse_lane, host_row, n_seq, lit_regen,
-    out_len.  window [B, W] uint8."""
+    out_len, win_len.  window [B, W] uint8.  Returns (rows, the lanes'
+    flags int32 [B])."""
     dev = meta.device
     B = meta.shape[0]
     lit_kind, pool_base, pool_len, lane0 = meta[:, 0], meta[:, 1], \
@@ -809,6 +822,7 @@ def _fused_decode(meta, huf_flat, huf_T, fse_rows, fse_T, h_rows, raw_flat,
     fse_lane = meta[:, 6].clamp(min=0)
     host_row = meta[:, 7].clamp(min=0)
     n_seq, lit_regen, out_len = meta[:, 8], meta[:, 9], meta[:, 10]
+    win_len = meta[:, 11]
 
     i = torch.arange(L, device=dev)[None, :]
     # raw-pool span per lane; an RLE span (pool_len 1) repeats its byte
@@ -846,13 +860,21 @@ def _fused_decode(meta, huf_flat, huf_T, fse_rows, fse_T, h_rows, raw_flat,
     sum_ll = torch.where(live, ll.to(torch.int64), 0).sum(dim=1)
     last_lit = lit_regen - sum_ll
     return execute(lit, window, ll, ml, off, n_seq.contiguous(), last_lit,
-                   out_len.contiguous())
+                   out_len.contiguous(), win_len.contiguous())
 
 
-def _meta_row(b):
+# the executor's flag bits (ops.execseq.lane_flags), as the error says them
+_FLAG_REASONS = ((0, "literal lengths overrun the literal section"),
+                 (1, "sequences do not fill the block's content size"),
+                 (2, "an offset reaches before the decoded output"))
+
+
+def _meta_row(b, win_len):
+    """A lane's meta row; `win_len` is the real bytes before its first
+    output byte that a match may reach (the flags' offset limit)."""
     return (b.lit_kind, b.pool_base, b.pool_len, b.huf_lane0, b.huf_seg,
             b.seq_kind, b.fse_lane, b.host_row, b.n_seq, b.lit_regen,
-            b.out_len)
+            b.out_len, win_len)
 
 
 def _mb_groups(mb_frames, max_group: int = 16):
@@ -905,9 +927,12 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
     to the device-planned single-block frames in frame order, lengths the
     per-row content size (numpy int64), and host_results maps frame_idx to
     bytes for host-routed frames and to a uint8 device tensor [content] for
-    multi-block frames.  With materialize=True, returns (results, stats):
-    every frame's bytes in order, each device-decoded frame's stored xxh64
-    checksum verified (checksum_wrong on mismatch), and stats counting
+    multi-block frames.  These rows are not checked: a corrupt frame the
+    planner took decodes to wrong bytes, as in the reference.  With
+    materialize=True, returns (results, stats): every frame's bytes in
+    order, after every device-decoded frame is checked -- a frame the
+    executor flagged raises corruption_detected, then a stored xxh64
+    checksum that differs raises checksum_wrong -- and stats counting
     device and host frames.
 
     ddict: a parsed dictionary (``dictionary.ParsedDict``) every frame
@@ -984,15 +1009,17 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
     O = _bucket(max(plan.max_out, 1), _O_BUCKETS)
     B = EXEC_LANES
     window = _window_rows(plan.window, B, device)
-    outputs = []
+    outputs, flags = [], []
     lengths = np.array([b.out_len for b in plan.blocks], np.int64)
     for c0 in range(0, len(plan.blocks), B):
-        meta = np.zeros((B, 11), np.int64)
+        meta = np.zeros((B, 12), np.int64)
         for k, b in enumerate(plan.blocks[c0:c0 + B]):
-            meta[k] = _meta_row(b)
-        outputs.append(_fused_decode(
+            meta[k] = _meta_row(b, len(plan.window))
+        rows, bad = _fused_decode(
             torch.from_numpy(meta).to(device), huf_flat, huf_T, fse_rows,
-            fse_T, h_rows, raw_flat, window, S, O))
+            fse_T, h_rows, raw_flat, window, S, O)
+        outputs.append(rows)
+        flags.append(bad)
     if outputs:
         tick("exec")
 
@@ -1012,28 +1039,34 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
                 bytearray(plan.window), dtype=torch.uint8).to(device)
         cols_w = torch.arange(Wb, device=device)[None, :]
         cols_o = torch.arange(O_max, device=device)[None, :]
+        group_bad = torch.zeros(F, dtype=torch.int32, device=device)
         for r in range(n_rounds):
-            meta = np.zeros((F, 11), np.int64)
+            meta = np.zeros((F, 12), np.int64)
             starts = np.full(F, Cb, np.int64)  # inactive lanes: padding tail
             for k, f in enumerate(group):
                 if r < len(f["blocks"]):
                     b = f["blocks"][r]
-                    meta[k] = _meta_row(b)
+                    # a match may reach the frame's output before the block
+                    # and the dictionary, as far as the Wb-byte window holds
+                    meta[k] = _meta_row(
+                        b, min(b.out_off + len(plan.window), Wb))
                     starts[k] = b.out_off
             st = torch.from_numpy(starts).to(device)
             # window = the Wb bytes before this block's output (clamped
             # starts, as jax.lax.dynamic_slice / dynamic_update_slice)
             ws = st.clamp(0, acc.shape[1] - Wb)[:, None] + cols_w
             windows = torch.gather(acc, 1, ws)
-            outs = _fused_decode(
+            outs, bad = _fused_decode(
                 torch.from_numpy(meta).to(device), huf_flat, huf_T,
                 fse_rows, fse_T, h_rows, raw_flat, windows, S, O_max)
+            group_bad |= bad  # inactive lanes flag nothing
             # inactive lanes write zeros past their content (padding)
             os_ = (Wb + st).clamp(0, acc.shape[1] - O_max)[:, None] + cols_o
             acc.scatter_(1, os_, outs)
         for k, f in enumerate(group):
             mb_device[f["frame_idx"]] = (
                 acc[k, Wb:Wb + f["content"]], f["content"], f["checksum"])
+        flags.append(group_bad)
     if mb_device:
         tick("mb_exec")
 
@@ -1041,6 +1074,18 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
         for fi, (row, _n, _cks) in mb_device.items():
             host_results[fi] = row  # device-resident uint8 [content]
         return outputs, lengths, host_results
+
+    # every device frame's flags: chunk lanes in plan.blocks order (padding
+    # lanes flag nothing), then each multi-block group's frames.  They are
+    # copied without a wait, into pinned memory on a card, ahead of the
+    # rows on the same stream, so the rows' copies bring them back too
+    lane_frames = [b.frame_idx for b in plan.blocks]
+    lane_frames += [None] * (len(outputs) * B - len(lane_frames))
+    lane_frames += [fi for fi in mb_device]
+    flags = torch.cat(flags)
+    bad = torch.empty(flags.shape, dtype=flags.dtype,
+                      pin_memory=device.type == "cuda")
+    bad.copy_(flags, non_blocking=True)
 
     results = [None] * plan.n_frames
     for fi, data in host_results.items():
@@ -1052,6 +1097,12 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
         for k, b in enumerate(plan.blocks[ci * B:(ci + 1) * B]):
             device_rows.append(
                 (b.frame_idx, host[k, :b.out_len].tobytes(), b.checksum))
+    flagged = [(fi, int(v)) for fi, v in zip(lane_frames, bad.numpy()) if v]
+    if flagged:
+        fi, v = min(flagged)
+        raise ZstdError(ZstdErrorCode.corruption_detected,
+                        f"frame {fi}: " + "; ".join(
+                            why for bit, why in _FLAG_REASONS if v >> bit & 1))
     for fi, data, cks in device_rows:
         if cks >= 0 and content_checksum(data) != cks:
             raise ZstdError(ZstdErrorCode.checksum_wrong,

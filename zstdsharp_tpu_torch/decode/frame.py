@@ -7,10 +7,13 @@ block loop (ZSTD_decompressFrame:1062), multi-frame + skippable handling
 (ZSTD_decompressMultiFrame:1216), bound computation (ZSTD_decompressBound:971)
 and checksum verification (:1186-1208).
 
-A frame without a dictionary decodes in the native engine through ctypes
-(the reference first tries its ``_ztpy`` CPython extension, which returns
-the same bytes); a dictionary frame the engine's ``NativeDDict`` does not
-take runs the Python block loop of ``FrameDecoder``.  ``decode_frame``
+A frame without a dictionary decodes in the native engine, as in the
+reference: through the ``_ztpy`` CPython extension (``native.get_ext``),
+which writes the content straight into a ``bytes`` object, or, where the
+extension cannot be built, through ctypes into a numpy array (the same
+bytes; ``decompress`` returns ``bytes`` either way and copies only the
+arrays).  A dictionary frame the engine's ``NativeDDict`` does not take
+runs the Python block loop of ``FrameDecoder``.  ``decode_frame``
 decodes one frame with an optional ``NativeDDict`` for the device
 planner's host route.  The port has no pure-Python frame decoder for the
 no-dictionary case: without the engine it raises.
@@ -307,7 +310,8 @@ def _native_frame(src, hdr: FrameHeader, ddict,
     """The frame body of `src` (header `hdr`, already checked) through the
     native engine, with `ddict` (a ``native.NativeDDict``) when given;
     then the content size and checksum checks.  Returns (content, bytes
-    of the frame consumed)."""
+    of the frame consumed): content is ``bytes`` from the extension
+    (no dictionary), else a uint8 array."""
     if hdr.frame_content_size >= 0:
         cap = hdr.frame_content_size
     else:
@@ -322,9 +326,13 @@ def _native_frame(src, hdr: FrameHeader, ddict,
                 break
         cap = n_blocks * min(C.ZSTD_BLOCKSIZE_MAX,
                              hdr.window_size or C.ZSTD_BLOCKSIZE_MAX)
-    body = np.frombuffer(src, np.uint8)[hdr.header_size:]
-    res = (native.decode_frame_body(body, cap) if ddict is None
-           else ddict.decode_frame_body(body, cap))
+    ext = native.get_ext() if ddict is None else None
+    if ext is not None:
+        res = ext.decode_frame_body(src, hdr.header_size, cap)
+    else:
+        body = np.frombuffer(src, np.uint8)[hdr.header_size:]
+        res = (native.decode_frame_body(body, cap) if ddict is None
+               else ddict.decode_frame_body(body, cap))
     if res is None:
         raise ZstdError(ZstdErrorCode.corruption_detected,
                         "frame body corrupt")

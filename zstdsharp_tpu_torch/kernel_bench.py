@@ -135,12 +135,13 @@ def hist_work(data: torch.Tensor, mask=None) -> tuple[int, int]:
 
 def lz_work(args) -> tuple[int, int]:
     """(bytes, operations) of one ``execseq.execute`` call on `args` (lit,
-    window, ll, ml, off, n_seq, last_lit, out_len): the [B, O] output
-    (O = L) written, each lane's literals read (its live ll and last_lit,
-    at most L), the distinct window bytes its matches read (one row for a
-    broadcast window), 12 bytes a live sequence and 24 a lane; about 4
-    operations an output byte below out_len and 20 a sequence."""
-    lit, window, ll, ml, off, n_seq, last_lit, out_len = args
+    window, ll, ml, off, n_seq, last_lit, out_len, win_len): the [B, O]
+    output (O = L) written, each lane's literals read (its live ll and
+    last_lit, at most L), the distinct window bytes its matches read (one
+    row for a broadcast window), 12 bytes a live sequence, 32 a lane read
+    and its 4-byte flags written; about 4 operations an output byte below
+    out_len and 24 a sequence (the walk and the flags' checks)."""
+    lit, window, ll, ml, off, n_seq, last_lit, out_len, _ = args
     B, L = lit.shape
     O, W, S = L, window.shape[1], ll.shape[1]
     dev = lit.device
@@ -166,8 +167,8 @@ def lz_work(args) -> tuple[int, int]:
                      accumulate=True)
     win_bytes = int((torch.cumsum(marks[:, :W], 1) > 0).sum())
     seqs = int(n.sum())
-    n_bytes = B * O + lit_bytes + win_bytes + 12 * seqs + 24 * B
-    return n_bytes, 4 * int(out_len.clamp(0, O).sum()) + 20 * seqs
+    n_bytes = B * O + lit_bytes + win_bytes + 12 * seqs + 36 * B
+    return n_bytes, 4 * int(out_len.clamp(0, O).sum()) + 24 * seqs
 
 
 def capture_exec(run) -> list:
@@ -195,7 +196,7 @@ def lz_corrupt(rng, B: int, S: int, O: int, W: int, dev,
     """``execute`` operands no decoder would produce: random literal rows
     of O bytes and window bytes (one row for all lanes when `broadcast`),
     ll, ml and off random int32 (half of them small), n_seq past both ends,
-    last_lit any int64, out_len up to O."""
+    last_lit any int64, out_len up to O, win_len up to 2 W."""
     def i32(mod):
         v = rng.integers(-2**31, 2**31, (B, S)).astype(np.int32)
         small = rng.random((B, S)) < 0.5
@@ -207,18 +208,21 @@ def lz_corrupt(rng, B: int, S: int, O: int, W: int, dev,
             window, i32(40), i32(60), i32(2 * O + W),
             torch.from_numpy(rng.integers(-3, S + 4, B)),
             torch.from_numpy(rng.integers(-2**40, 2**40, B)),
-            torch.from_numpy(rng.integers(-5, O + 1, B))]
+            torch.from_numpy(rng.integers(-5, O + 1, B)),
+            torch.from_numpy(rng.integers(0, 2 * W + 1, B))]
     args = [a.to(dev) for a in args]
     if broadcast:
         args[1] = args[1].expand(B, W)
     return args
 
 
-def lz_plain(args) -> torch.Tensor:
-    """The plain version of ``execute`` on `args`, on their device."""
+def lz_plain(args) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain versions of ``execute`` on `args`, on their device: (the
+    rows, the lanes' flags)."""
     B, O = args[0].shape
-    return execseq.make_executor(B, args[2].shape[1], O, args[1].shape[1],
-                                 O)(*args)
+    return (execseq.make_executor(B, args[2].shape[1], O, args[1].shape[1],
+                                  O)(*args[:8]),
+            execseq.lane_flags(*args[2:]))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ zstdsharp_tpu/native.py).  It binds only the entry points the port calls:
   (``zt_dstream_*``);
 * the host block encoder's kernels: ``fast_find_matches``,
   ``lazy_find_matches``, ``encode_sequences``, ``huf_encode_stream``;
-* ``xxh64``.
+* ``xxh64``;
+* the zero-copy CPython route ``get_ext`` (the repository's
+  ``native/ztpy.cpp``, ``_ztpy``): ``decode_frame_body`` and
+  ``compress_exact`` written straight into a ``bytes`` object, for the
+  frame decoder and ``compress_exact``; ``host_route`` names the route.
 
 The handles that keep per-call scratch in the engine (``NativeCDict``,
 ``NativeDDict``, ``NativeDStream``) hold a lock around every call, since
@@ -35,6 +39,16 @@ carries a hash of the source, the flags and the host, so a build made on
 one machine is not loaded on another.  Where the engine can be neither
 loaded nor built, :func:`get_lib` raises: the port has no pure-Python
 codec to fall back on.
+
+The extension is optional, as in the reference: ``get_ext`` builds
+``native/ztpy.cpp`` with g++ against Python's headers into
+``build/host/_ztpy.<hash><EXT_SUFFIX>`` (the same lock and atomic rename;
+the hash covers the source, the flags, the Python ABI, the host and the
+engine file with its contents) and links it to the very engine file the
+ctypes binding loaded, so both share one engine image.  It never loads the
+tracked ``native/_ztpy.so``, which links ``native/`` by rpath.  Without
+Python's headers, when the build fails, or with ``ZSTDTPU_NO_EXT`` set, it
+returns None and the ctypes route serves every call.
 """
 
 from __future__ import annotations
@@ -45,6 +59,8 @@ import hashlib
 import os
 import platform
 import subprocess
+import sys
+import sysconfig
 import threading
 from pathlib import Path
 
@@ -56,6 +72,8 @@ TRACKED_LIB = _REPO / "native" / "libzstdtpu_core.so"
 BUILD_DIR = _REPO / "build" / "host"
 # The reference's flags: -O2 globally, hot decode loops pin O3 in the source.
 CXX_FLAGS = ("-O2", "-march=native", "-shared", "-fPIC", "-std=c++17")
+EXT_SRC = _REPO / "native" / "ztpy.cpp"
+EXT_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
 class DPlaneCtx(ctypes.Structure):
@@ -81,6 +99,10 @@ class DPlaneCtx(ctypes.Structure):
 
 _lock = threading.Lock()
 _lib = None
+_lib_file = None     # the engine file get_lib loaded
+_ext_lock = threading.Lock()
+_ext = None          # the _ztpy extension module
+_ext_tried = False
 
 
 def built_lib_path() -> Path:
@@ -91,42 +113,111 @@ def built_lib_path() -> Path:
     return BUILD_DIR / f"libzstdtpu_core.{key.hexdigest()[:16]}.so"
 
 
-def _build(path: Path) -> None:
-    """Compile the source into `path` once, whatever the number of
-    processes asking at the same time."""
+def _compile(path: Path, cmd: list) -> str | None:
+    """Run the g++ command `cmd` (its output the last argument) into
+    `path` once, whatever the number of processes asking at the same
+    time: under the build lock, into a temporary file renamed atomically.
+    Returns None once `path` exists, else the compiler's error."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if path.exists():
-            return
+            return None
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         try:
-            r = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                               capture_output=True, text=True, timeout=600)
+            r = subprocess.run([*cmd, str(tmp)], capture_output=True,
+                               text=True, timeout=600)
             if r.returncode != 0:
-                raise RuntimeError(
-                    f"the native host engine ({SRC.name}) failed to build:\n"
-                    f"{r.stderr[-4000:]}")
+                return r.stderr[-4000:]
             os.replace(tmp, path)
-        except OSError as e:
-            raise RuntimeError(
-                f"the native host engine ({SRC.name}) cannot be built: {e}"
-            ) from e
+            return None
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return str(e)
         finally:
             tmp.unlink(missing_ok=True)
 
 
+def _build(path: Path) -> None:
+    """Compile the engine's source into `path`; raise if it fails."""
+    err = _compile(path, ["g++", *CXX_FLAGS, str(SRC), "-o"])
+    if err is not None:
+        raise RuntimeError(
+            f"the native host engine ({SRC.name}) failed to build:\n{err}")
+
+
 def _open() -> ctypes.CDLL:
+    global _lib_file
     if (TRACKED_LIB.exists()
             and TRACKED_LIB.stat().st_mtime >= SRC.stat().st_mtime):
         try:
-            return ctypes.CDLL(str(TRACKED_LIB))
+            lib = ctypes.CDLL(str(TRACKED_LIB))
+            _lib_file = TRACKED_LIB
+            return lib
         except OSError:
             pass  # e.g. built for another CPU: build this host's below
     path = built_lib_path()
     if not path.exists():
         _build(path)
-    return ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(path))
+    _lib_file = path
+    return lib
+
+
+def ext_path(lib_file: Path) -> Path:
+    """Where this host's build of the extension against the engine file
+    `lib_file` goes."""
+    key = hashlib.sha256(EXT_SRC.read_bytes())
+    key.update(" ".join(EXT_FLAGS).encode())
+    key.update(f"{sys.implementation.cache_tag} "
+               f"{sysconfig.get_config_var('EXT_SUFFIX')}".encode())
+    key.update(f"{platform.node()} {platform.machine()}".encode())
+    key.update(str(lib_file.resolve()).encode())
+    key.update(hashlib.sha256(lib_file.read_bytes()).digest())
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    return BUILD_DIR / f"_ztpy.{key.hexdigest()[:16]}{suffix}"
+
+
+def get_ext():
+    """The ``_ztpy`` extension module (zero-copy ``decode_frame_body`` and
+    ``compress_exact``), built on first use and linked to the engine file
+    ``get_lib`` loaded; None where it cannot be built or loaded or
+    ``ZSTDTPU_NO_EXT`` is set, and the ctypes route serves instead."""
+    global _ext, _ext_tried
+    if _ext is not None or _ext_tried:
+        return _ext
+    get_lib()
+    with _ext_lock:
+        if _ext is not None or _ext_tried:
+            return _ext
+        _ext_tried = True
+        if os.environ.get("ZSTDTPU_NO_EXT"):
+            return None
+        include = sysconfig.get_paths()["include"]
+        if not (Path(include) / "Python.h").exists():
+            return None
+        lib_file = _lib_file.resolve()
+        path = ext_path(lib_file)
+        if not path.exists() and _compile(path, [
+                "g++", *EXT_FLAGS, f"-I{include}", str(EXT_SRC),
+                f"-L{lib_file.parent}", f"-l:{lib_file.name}",
+                f"-Wl,-rpath,{lib_file.parent}", "-o"]) is not None:
+            return None
+        try:
+            import importlib.util
+
+            spec = importlib.util.spec_from_file_location("_ztpy", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        except (ImportError, OSError):
+            return None
+        _ext = mod
+    return _ext
+
+
+def host_route() -> str:
+    """The host codec's whole-frame route: "ztpy" (the extension) or
+    "ctypes"."""
+    return "ztpy" if get_ext() is not None else "ctypes"
 
 
 def get_lib() -> ctypes.CDLL:
@@ -424,6 +515,9 @@ def compress_exact(data: bytes, level: int,
     """A whole zstd frame from the exact encoder (ZSTD_compress2 semantics
     for the fast, dfast and bt-optimal strategies); None for a level and
     size it does not cover."""
+    ext = get_ext()
+    if ext is not None:  # the frame is written straight into the bytes
+        return ext.compress_exact(data, level, bool(checksum))
     src = np.frombuffer(data, dtype=np.uint8)
     cap = len(src) + (len(src) >> 2) + 4096
     out = np.empty(cap, dtype=np.uint8)

@@ -1,11 +1,21 @@
 """LZ sequence execution: CUDA kernel and plain torch version (counterpart
 of zstdsharp_tpu/ops/execseq.py, ZSTD_execSequence:2187 role).
 
-``execute(lit, window, ll, ml, off, n_seq, last_lit, out_len)`` is the
-decode plane's entry: CPU tensors run ``make_executor``'s plain version,
-CUDA tensors launch ``csrc/lz_exec.cu`` (one block per lane walking its
-sequences in order; its source note says what bounds it and how the design
-answers).  Both give the same bytes on any operands.
+``execute(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len)``
+is the decode plane's entry: CPU tensors run the plain versions
+(``make_executor``'s run and ``lane_flags``), CUDA tensors launch
+``csrc/lz_exec.cu`` (one block per lane walking its sequences in order;
+its source note says what bounds it and how the design answers).  Both
+give the same bytes and the same per-lane flags on any operands.
+
+The flags are libzstd's checks on a block's sequences (ZSTD_execSequence,
+ZSTD_decompressSequences), computed on the operands: bit 0, the literal
+lengths overrun the literal section (``last_lit < 0``); bit 1, the lane's
+output is not ``out_len`` bytes long (sum of ll and ml as u32, plus
+``last_lit``); bit 2, a match reaches before the bytes it may read (its
+offset as u32 is 0, which libzstd turns into -1, or exceeds the bytes the
+lane has produced before it plus ``win_len``, the real bytes in front of
+the lane's first output byte).  A valid block sets none.
 
 The plain version is plain torch, as the reference is plain XLA: the same
 three stages run on whatever device the operands are on.
@@ -145,6 +155,36 @@ def make_executor(B: int, S: int, L: int, W: int, O: int):
     return run
 
 
+def lane_flags(ll, ml, off, n_seq, last_lit, out_len, win_len
+               ) -> torch.Tensor:
+    """The plain version of the kernel's per-lane flags: int32 [B], bit 0
+    ``last_lit < 0``, bit 1 ``sum(ll) + sum(ml) + last_lit != out_len``,
+    bit 2 some live offset is 0 or exceeds its match's output position
+    plus ``win_len``.  ll/ml/off are read as u32, the live sequences are
+    the first ``clamp(n_seq, 0, S)``, and every sum is int64 (wrapping,
+    as the kernel's)."""
+    S = ll.shape[1]
+    dev = ll.device
+    i64 = torch.int64
+
+    def u32(a):
+        return a.to(i64) & 0xFFFFFFFF
+
+    live = (torch.arange(S, device=dev)[None, :]
+            < n_seq.to(i64).clamp(0, S)[:, None])
+    llu = torch.where(live, u32(ll), 0)
+    mlu = torch.where(live, u32(ml), 0)
+    size = llu + mlu
+    match_start = torch.cumsum(size, dim=1) - size + llu
+    offu = u32(off)
+    reach = (offu == 0) | (offu > match_start + win_len.to(i64)[:, None])
+    total = size.sum(dim=1) + last_lit.to(i64)
+    bad = ((last_lit < 0).to(torch.int32)
+           | ((total != out_len.to(i64)).to(torch.int32) << 1)
+           | ((live & reach).any(dim=1).to(torch.int32) << 2))
+    return bad
+
+
 def _check_window(window, B: int, dev: torch.device) -> int:
     """Raise unless window is uint8 [B, W] on dev whose rows are contiguous
     and either W bytes apart or one row broadcast to all (stride 0, as
@@ -167,16 +207,17 @@ def _check_window(window, B: int, dev: torch.device) -> int:
     return ws
 
 
-def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len
-            ) -> torch.Tensor:
+def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Execute each lane's sequences: lit uint8 [B, O] (the literal rows
     are as wide as the output, as the decode plane builds them), window
     uint8 [B, W] (contiguous, or one row broadcast with stride 0),
-    ll/ml/off int32 [B, S] (u32 bits), n_seq/last_lit/out_len int64 [B]
-    -> uint8 [B, O] (bytes at or past out_len are zero).  CPU tensors run
-    ``make_executor``'s plain version; CUDA tensors launch the kernel on
-    the current stream.  Any other device, dtype, shape or layout raises,
-    and so does an O outside [1, MAX_O] on the card."""
+    ll/ml/off int32 [B, S] (u32 bits), n_seq/last_lit/out_len/win_len
+    int64 [B] -> (uint8 [B, O], bytes at or past out_len zero; int32 [B],
+    each lane's ``lane_flags``).  CPU tensors run the plain versions; CUDA
+    tensors launch the kernel on the current stream.  Any other device,
+    dtype, shape or layout raises, and so does an O outside [1, MAX_O] on
+    the card."""
     if not isinstance(lit, torch.Tensor):
         raise TypeError(f"lit: expected a torch.Tensor, got {type(lit)}")
     if lit.dim() != 2:
@@ -192,17 +233,19 @@ def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len
     for name, t in (("ll", ll), ("ml", ml), ("off", off)):
         check_operand(name, t, (B, S), dev, torch.int32)
     for name, t in (("n_seq", n_seq), ("last_lit", last_lit),
-                    ("out_len", out_len)):
+                    ("out_len", out_len), ("win_len", win_len)):
         check_operand(name, t, (B,), dev, torch.int64)
     if dev.type == "cpu":
-        return make_executor(B, S, O, W, O)(lit, window, ll, ml, off, n_seq,
-                                            last_lit, out_len)
+        return (make_executor(B, S, O, W, O)(lit, window, ll, ml, off, n_seq,
+                                             last_lit, out_len),
+                lane_flags(ll, ml, off, n_seq, last_lit, out_len, win_len))
     check_cuda(dev)
     if not 0 < O <= MAX_O:
         raise ValueError(f"O {O}: the kernel takes 1 to {MAX_O}")
     out = torch.empty((B, O), dtype=torch.uint8, device=dev)
+    bad = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
-        return out
+        return out, bad
     # written only by lanes that take the exact path (corrupt operands)
     seg = torch.empty((B, 2, S + 1), dtype=torch.int64, device=dev)
     code = torch.empty((B, O), dtype=torch.int32, device=dev)
@@ -210,10 +253,11 @@ def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len
     launch("lz_exec", dev, _build.load().zt_lz_exec, lit.data_ptr(), O,
            window.data_ptr(), W, ws, ll.data_ptr(), ml.data_ptr(),
            off.data_ptr(), S, n_seq.data_ptr(), last_lit.data_ptr(),
-           out_len.data_ptr(), out.data_ptr(), O, seg.data_ptr(),
-           code.data_ptr(), search_rounds, jump_rounds, B)
+           out_len.data_ptr(), win_len.data_ptr(), out.data_ptr(), O,
+           bad.data_ptr(), seg.data_ptr(), code.data_ptr(), search_rounds,
+           jump_rounds, B)
     execute.launches += 1
-    return out
+    return out, bad
 
 
 execute.launches = 0
