@@ -33,23 +33,29 @@ Phases, each printed on its own line:
      and its serial floor: the window's longest lane alone, checked and
      timed through the raw launcher (``serial_floor_ms``);
   3. the same for the FSE kernel (``kernel_bench.fse_work``);
- 3b. lz_exec: the LZ executor kernel against its plain versions, its rows
-     byte for byte and its per-lane flags, on every operand set the decode
-     plane hands ``execseq.execute`` (captured through
-     ``kernel_bench.capture_exec``): the decode cell's 4 chunks [64,
-     24576], the rounds of the two 400 KB multi-block frames, every chunk
-     and round of both dictionary sets (set 2's 128 KB window row
-     broadcast with stride 0), none of which flags a lane, and random
-     corrupt operands; then the A/B on the decode cell's chunks, in turns
-     (plain, kernel, kernel, plain; the plain version is ``make_executor``'s
-     run and ``lane_flags`` called directly on the same CUDA tensors),
-     printed beside the kernel's time without the flags, the serial
-     floor (the cell's longest lane alone) and the bound
+ 3b. lz_exec: the LZ executor kernel (``csrc/lz_exec.cu``) against its
+     plain versions, rows byte for byte and per-lane flags, on every call
+     the decode plane makes to its entry ``execseq.execute_lanes``
+     (captured through ``kernel_bench.capture_exec``): the decode cell's
+     256 lanes [O 24576] in one launch, each round of the two 400 KB
+     multi-block frames (one launch in place on the frame accumulator),
+     set 1's 5,000 lanes in one launch, set 2's lanes (its 128 KB window
+     row broadcast with stride 0) and rounds, none of which flags a lane,
+     and random corrupt meta; on each call also ``execseq.execute`` (the
+     same kernel body on the assembled operands) against its plain
+     version, and on two random corrupt operand sets; the launch counts
+     of each decode (the decode cell and set 1 once); then the A/B on the
+     decode cell's launch, in turns (plain, kernel, kernel, plain; the
+     plain version is ``lanes_plain`` on the same CUDA tensors: the torch
+     assembly, ``make_executor``'s run and ``lane_flags``), printed beside
+     ``execute``'s time on the assembled operands, the serial floor (the
+     cell's longest lane alone) and the bound
      (``kernel_bench.lz_work``);
  3c. corrupt frames: 8 records of 6,000 B at level 9 without a checksum,
      300 trials from random.Random(7) each flipping 1-4 bits of one frame:
      ``decode_batch_device(materialize=True)`` raises wherever the host
-     ``decompress`` raises and otherwise returns the host's bytes;
+     ``decompress`` raises and otherwise returns the host's bytes, and the
+     fused kernel equals its plain version on every call of every trial;
   4. decode end to end: decoded bytes equal the inputs, none of the 256
      records is routed to the host, both decode kernels and the LZ
      executor kernel were launched;
@@ -122,11 +128,12 @@ Phases, each printed on its own line:
      with ``CCtxParams(compression_level=3, n_workers=4)`` decoded by
      ``decompress(..., n_workers=4)``; prints (not asserted) each call's
      time and the streams' MB/s;
- 16. one more level-1 stream compress of phase 9's input under
-     torch.profiler: device events, the device's busy share (the union of
-     their intervals over the call's wall time) and the time of the
-     copies and sorts.  It runs last so that no timed phase follows a
-     profiler session.
+ 16. one decode of the decode cell under torch.profiler: its device
+     events and the LZ executor kernel's device ms; then one more level-1
+     stream compress of phase 9's input under torch.profiler: device
+     events, the device's busy share (the union of their intervals over
+     the call's wall time) and the time of the copies and sorts.  They
+     run last so that no timed phase follows a profiler session.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel's "launches" in the JSON line sums them.
@@ -283,103 +290,182 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
             "launcher_ms": launcher_ms, "serial_floor_ms": floor_ms}
 
 
+def _lz_equal(call, name):
+    """The fused kernel against its plain version on one captured
+    ``execute_lanes`` call (an in-place output on copies), then
+    ``execute``'s kernel against its plain version on the same lanes'
+    assembled operands.  Returns (max_abs_err, the flags)."""
+    import torch
+
+    from zstdsharp_tpu_torch.kernel_bench import exec_args, run_lanes
+    from zstdsharp_tpu_torch.ops.execseq import (execute, execute_plain,
+                                                 lanes_plain)
+
+    got, bad = run_lanes(call)
+    torch.cuda.synchronize()
+    want, want_bad = run_lanes(call, lanes_plain)
+    _check(got.shape == want.shape, f"{name}: the fused kernel's shape")
+    err = float((got.long() - want.long()).abs().max()) if got.numel() \
+        else 0.0
+    _check(torch.equal(bad, want_bad),
+           f"{name}: the fused kernel's flags equal the plain version's")
+    args = exec_args(call)
+    got, ebad = execute(*args)
+    torch.cuda.synchronize()
+    want, want_bad = execute_plain(*args)
+    err = max(err, float((got.long() - want.long()).abs().max()))
+    _check(torch.equal(ebad, want_bad) and torch.equal(ebad, bad),
+           f"{name}: execute's flags equal the plain version's")
+    return err, bad
+
+
+def _decode_profile(run):
+    """One run() under torch.profiler: (device events, the lz_exec
+    kernel's device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(events), sum(e.time_range.elapsed_us() for e in events
+                            if "lz_kernel" in e.name) / 1e3
+
+
 def _lz_phase(frames, mb_frames, big, dev, card):
     """Phase 3b: the LZ executor kernel against its plain version on every
-    operand set the decode plane gives it, and its timings on the decode
-    cell's chunks.  Returns the kernel's JSON fields (ms, plain_ms and
-    bound_ms per chunk, averaged over the cell's 4 chunks)."""
+    call the decode plane makes, its launch counts, and its timings on the
+    decode cell.  Returns the kernel's JSON fields (ms, plain_ms and
+    bound_ms of the decode cell's one launch)."""
     import numpy as np
     import torch
 
     from zstdsharp_tpu_torch.decode import device_pipeline as dp
     from zstdsharp_tpu_torch.dictionary import parse_dictionary
     from zstdsharp_tpu_torch.kernel_bench import (bound, capture_exec,
-                                                  lz_corrupt, lz_plain,
-                                                  lz_work)
-    from zstdsharp_tpu_torch.ops.execseq import execute
+                                                  exec_args, lz_corrupt,
+                                                  lz_corrupt_lanes, lz_work,
+                                                  run_lanes)
+    from zstdsharp_tpu_torch.ops.execseq import (execute, execute_lanes,
+                                                 execute_plain, lanes_plain)
 
     sets = _dict_sets()
-    groups = {"decode cell": capture_exec(
-                  lambda: dp.decode_batch_device(frames, dev)),
-              "multi-block": capture_exec(
-                  lambda: dp.decode_batch_device(mb_frames, dev))}
+    runs = {"decode cell": lambda: dp.decode_batch_device(frames, dev),
+            "multi-block": lambda: dp.decode_batch_device(mb_frames, dev)}
     for name in ("json", "corpus"):
         d, dframes, _ = sets.load(name, big)
-        pd = parse_dictionary(d)
-        groups[f"dictionary {name}"] = capture_exec(
-            lambda: dp.decode_batch_device(dframes, dev, ddict=pd))
+        runs[f"dictionary {name}"] = (
+            lambda f=dframes, pd=parse_dictionary(d):
+            dp.decode_batch_device(f, dev, ddict=pd))
+    groups, launched = {}, {}
+    for name, run in runs.items():
+        execute_lanes.launches = 0
+        groups[name] = capture_exec(run)
+        launched[name] = execute_lanes.launches
     rng = np.random.default_rng(10)
-    groups["corrupt"] = [lz_corrupt(rng, *shape, dev, bc)
-                         for *shape, bc in ((64, 4096, 24576, 8, False),
-                                            (16, 1024, 24576, 1 << 15, True),
-                                            (4, 4096, 1 << 17, 1 << 17,
-                                             False))]
+    groups["corrupt meta"] = [
+        lz_corrupt_lanes(rng, *shape, dev, srcs) for *shape, srcs in (
+            (64, 256, 4096, 8, "all"), (200, 1024, 24576, 1 << 15, "all"),
+            (5, 4096, 1 << 17, 1 << 17, "all"), (33, 100, 3000, 0, "raw"))]
     cell = groups["decode cell"]
-    _check(len(cell) == 4 and all(a[0].shape[1] == REC_SIZE for a in cell),
-           f"the decode cell runs 4 chunks of [64, {REC_SIZE}]")
-    _check(any(a[1].shape[1] == 1 << 17 and a[1].stride(0) == 0
-               for a in groups["dictionary corpus"]),
+    _check(launched["decode cell"] == 1 and len(cell) == 1
+           and tuple(cell[0]["meta"].shape) == (N_RECORDS, 12)
+           and cell[0]["O"] == REC_SIZE,
+           f"the decode cell's 256 lanes [O {REC_SIZE}] in one launch")
+    _check(launched["dictionary json"] == 1,
+           "set 1's 5,000 lanes in one launch")
+    for name in ("multi-block", "dictionary corpus"):
+        rounds = [c for c in groups[name] if c["out"] is not None]
+        _check(rounds and all(c["window"] is c["out"]
+                              and c["win_start"] is not None
+                              for c in rounds),
+               f"{name}: each round one launch in place on its accumulator")
+    _check(any(c["window"].shape[1] == 1 << 17 and c["window"].stride(0) == 0
+               for c in groups["dictionary corpus"]),
            "set 2 runs its 128 KB window row broadcast to the lanes")
     err, shapes, flagged = 0.0, {}, {}
     for name, calls in groups.items():
-        _check(calls, f"{name}: the decode plane called execute")
+        _check(calls, f"{name}: the decode plane called execute_lanes")
         flagged[name] = 0
-        for args in calls:
-            got, bad = execute(*args)
-            torch.cuda.synchronize()
-            want, want_bad = lz_plain(args)
-            torch.cuda.synchronize()
-            err = max(err, float((got.long() - want.long()).abs().max()))
-            _check(torch.equal(bad, want_bad),
-                   f"{name}: lz_exec kernel's flags equal the plain version's")
+        for call in calls:
+            e, bad = _lz_equal(call, name)
+            err = max(err, e)
             flagged[name] += int((bad != 0).sum())
-        _check(name == "corrupt" or flagged[name] == 0,
+        _check(name == "corrupt meta" or flagged[name] == 0,
                f"{name}: valid frames flag no lane ({flagged[name]})")
-        shapes[name] = sorted({(tuple(a[0].shape), a[2].shape[1],
-                                a[1].shape[1], a[1].stride(0))
-                               for a in calls})
+        shapes[name] = sorted({(c["meta"].shape[0], c["O"], c["S"],
+                                c["window"].shape[1], c["W"],
+                                c["out"] is not None) for c in calls})
+    rng = np.random.default_rng(11)
+    for *shape, bc in ((64, 4096, 24576, 8, False),
+                       (16, 1024, 24576, 1 << 15, True)):
+        args = lz_corrupt(rng, *shape, dev, bc)
+        got, bad = execute(*args)
+        want, want_bad = execute_plain(*args)
+        err = max(err, float((got.long() - want.long()).abs().max()))
+        _check(torch.equal(bad, want_bad), "execute's flags, corrupt operands")
     _check(err == 0.0, "lz_exec kernel equals its plain version")
-    _check(flagged["corrupt"] > 0, "corrupt operands flag lanes")
+    _check(flagged["corrupt meta"] > 0, "corrupt meta flags lanes")
 
-    # A/B on the decode cell's chunks, in turns: plain, kernel, kernel, plain
-    k_ms, p_ms, b_ms = [], [], []
-    for args in cell:
-        a = _gpu_ms(lambda: lz_plain(args), 3)
-        k1 = _gpu_ms(lambda: execute(*args), 20)
-        k2 = _gpu_ms(lambda: execute(*args), 20)
-        b = _gpu_ms(lambda: lz_plain(args), 3)
-        k_ms.append((k1 + k2) / 2)
-        p_ms.append((a + b) / 2)
-        b_ms.append(bound(*lz_work(args)))
-    args = max(cell, key=lambda a: int(a[5].max()))
-    longest = int(torch.argmax(args[5]))
-    lane = [a[longest:longest + 1] for a in args]
-    _check(all(torch.equal(a, b) for a, b in zip(execute(*lane),
-                                                  lz_plain(lane))),
+    # the decode cell's one launch against its plain version on the card,
+    # in turns: plain, kernel, kernel, plain; execute on the assembled
+    # operands (the same kernel body) beside it
+    call = cell[0]
+    a = _gpu_ms(lambda: run_lanes(call, lanes_plain), 3)
+    k1 = _gpu_ms(lambda: run_lanes(call), 20)
+    k2 = _gpu_ms(lambda: run_lanes(call), 20)
+    b = _gpu_ms(lambda: run_lanes(call, lanes_plain), 3)
+    ms, plain_ms = (k1 + k2) / 2, (a + b) / 2
+    args = exec_args(call)
+    exec_ms = _gpu_ms(lambda: execute(*args), 20)
+    bound_ms, bound_by = bound(*lz_work(call))
+    longest = int(torch.argmax(call["meta"][:, 8]))
+    lane = dict(call, meta=call["meta"][longest:longest + 1],
+                window=call["window"][:1])
+    got, want = run_lanes(lane), run_lanes(lane, lanes_plain)
+    _check(all(torch.equal(x, y) for x, y in zip(got, want)),
            "lz_exec kernel equals its plain version on the longest lane")
-    floor_ms = _gpu_ms(lambda: execute(*lane), 20)
-    n_max, seqs = int(lane[5][0]), [int(a[5].clamp(min=0).sum())
-                                    for a in cell]
-    ms, plain_ms = sum(k_ms) / 4, sum(p_ms) / 4
-    bound_ms = sum(b for b, _ in b_ms) / 4
-    print(f"phase lz_exec: kernel == plain on {sum(map(len, groups.values()))}"
-          f" calls (max_abs_err {err}; flags equal, flagged lanes "
-          f"{flagged}): "
-          f"{ {k: len(v) for k, v in groups.items()} } calls of (lit shape, "
-          f"S, W, window row stride) {shapes}; decode cell chunks "
-          f"({seqs} sequences): kernel with the flags "
-          f"{[round(x, 4) for x in k_ms]} ms (the kernel without them: "
-          f"0.1874-0.1916 ms on NVIDIA H100 80GB HBM3, 700 W, PERF.md), "
-          f"plain {[round(x, 3) for x in p_ms]} ms (turns plain, kernel, "
-          f"kernel, plain; CUDA events), bound "
-          f"{[round(b, 5) for b, _ in b_ms]} ms ({b_ms[0][1]}); serial "
-          f"floor: the longest lane alone ({n_max} sequences) {floor_ms:.4f}"
-          f" ms, {floor_ms * 1e6 / max(n_max, 1):.1f} ns a sequence; no "
-          f"single PyTorch call computes it, on {card}")
+    floor_ms = _gpu_ms(lambda: run_lanes(lane), 20)
+    n_max = int(lane["meta"][0, 8])
+    print(f"phase lz_exec: fused kernel == plain on "
+          f"{sum(map(len, groups.values()))} calls (max_abs_err {err}; "
+          f"flags equal, flagged lanes {flagged}; execute == plain on the "
+          f"same lanes' assembled operands and 2 corrupt operand sets): "
+          f"{ {k: len(v) for k, v in groups.items()} } calls of (lanes, O, "
+          f"S, window row, W, in place) {shapes}; launches a decode "
+          f"{launched} (the chunked executor: decode cell 4, set 1 79, "
+          f"PERF.md); decode cell, one launch of 256 lanes "
+          f"({int(call['meta'][:, 8].clamp(min=0).sum())} sequences): "
+          f"kernel {k1:.4f} / {k2:.4f} ms, plain {a:.3f} / {b:.3f} ms "
+          f"(turns plain, kernel, kernel, plain; CUDA events), execute on "
+          f"the assembled operands {exec_ms:.4f} ms, bound {bound_ms:.5f} "
+          f"ms ({bound_by}); serial floor: the longest lane alone ({n_max} "
+          f"sequences) {floor_ms:.4f} ms, "
+          f"{floor_ms * 1e6 / max(n_max, 1):.1f} ns a sequence; no single "
+          f"PyTorch call computes it, on {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": b_ms[0][1], "library_ms": None,
-            "serial_floor_ms": floor_ms, "ms_chunks": k_ms,
-            "plain_ms_chunks": p_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "serial_floor_ms": floor_ms, "execute_ms": exec_ms}
+
+
+def _decode_profile_phase(frames, dev, card):
+    """Phase 16, first part: one decode of the decode cell under
+    torch.profiler (after every timed phase): its device events and the
+    fused kernel's device ms, beside the chunked executor's."""
+    from zstdsharp_tpu_torch.decode import device_pipeline as dp
+
+    events, dev_ms = _decode_profile(
+        lambda: dp.decode_batch_device(frames, dev))
+    _check(dev_ms > 0, "the profiler saw the fused kernel")
+    print(f"phase decode profile: one decode of the {len(frames)} records: "
+          f"{events} device events, the lz_exec kernel {dev_ms:.4f} ms of "
+          f"device time in one launch (the chunked executor: 246 events, "
+          f"0.7407 ms over 4 launches, PERF.md) on {card}")
+    return {"decode_device_ms": dev_ms, "decode_events": events}
 
 
 def _corrupt_phase(data, dev, card):
@@ -393,13 +479,15 @@ def _corrupt_phase(data, dev, card):
     from zstdsharp_tpu_torch.decode.frame import decompress
     from zstdsharp_tpu_torch.encode.frame import compress
     from zstdsharp_tpu_torch.errors import ZstdError, ZstdErrorCode
+    from zstdsharp_tpu_torch.kernel_bench import capture_exec
 
     recs = [data[i * 6000:(i + 1) * 6000] for i in range(8)]
     frames = [compress(r, 9) for r in recs]
     results, _ = dp.decode_batch_device(frames, dev, materialize=True)
     _check(results == recs, "the unmutated batch decodes byte-exact")
     rng = random.Random(7)
-    n = {"accepted": 0, "rejected": 0, "flagged": 0}
+    n = {"accepted": 0, "rejected": 0, "flagged": 0, "calls": 0,
+         "flagged lanes": 0}
     for _ in range(300):
         fi = rng.randrange(8)
         f = bytearray(frames[fi])
@@ -410,9 +498,24 @@ def _corrupt_phase(data, dev, card):
             want = decompress(bytes(f))
         except ZstdError:
             want = None
-        try:
-            got, _ = dp.decode_batch_device(batch, dev, materialize=True)
-        except ZstdError as e:
+        out = {}
+
+        def run():
+            try:
+                out["got"] = dp.decode_batch_device(batch, dev,
+                                                    materialize=True)[0]
+            except ZstdError as e:
+                out["error"] = e
+
+        for call in capture_exec(run):
+            e, bad = _lz_equal(call, f"trial of frame {fi}")
+            _check(e == 0.0, "lz_exec kernel equals its plain version on "
+                   "a corrupt-frame trial")
+            n["calls"] += 1
+            n["flagged lanes"] += int((bad != 0).sum())
+        got = out.get("got")
+        if "error" in out:
+            e = out["error"]
             _check(want is None, f"frame {fi} raised ({e}) where the host "
                    "decoder accepts it")
             n["rejected"] += 1
@@ -438,7 +541,7 @@ def _kernel_wrappers():
     return {"huf_decode": device_huf.decode_lanemajor,
             "fse_decode": device_fse.decode_lanemajor,
             "histogram": histogram.histogram_u8,
-            "lz_exec": execseq.execute}
+            "lz_exec": execseq.execute_lanes}
 
 DECODE_KERNELS = ("huf_decode", "fse_decode", "lz_exec")
 
@@ -1216,6 +1319,7 @@ def main() -> int:
     _ldm_phase(data, dev, card)
     for k, v in _api_phase(recs, data, card).items():
         launches[k] += v
+    lz.update(_decode_profile_phase(frames, dev, card))
     _stream_profile(big, dev, card)
 
     kernels = [{"name": name, "route": "cuda",

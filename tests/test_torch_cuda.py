@@ -22,8 +22,9 @@ from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor, decompress
 from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.encode.frame import compress
-from zstdsharp_tpu_torch.kernel_bench import (capture_exec, lz_corrupt,
-                                             lz_plain)
+from zstdsharp_tpu_torch.kernel_bench import (capture_exec, exec_args,
+                                             lz_corrupt, lz_corrupt_lanes,
+                                             run_lanes)
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
 from zstdsharp_tpu_torch.ops import execseq as ex
@@ -438,50 +439,150 @@ def _lz_equal_plain(args):
     got, bad = ex.execute(*args)
     torch.cuda.synchronize()
     assert ex.execute.launches == before + 1
-    want, want_bad = lz_plain(args)
+    want, want_bad = ex.execute_plain(*args)
     assert got.shape == want.shape and torch.equal(got, want)
     assert bad.dtype == torch.int32 and torch.equal(bad, want_bad)
     return bad
 
 
+def _lanes_equal_plain(call):
+    """Launch the fused lane decode once on a ``capture_exec`` record
+    (an in-place output on a copy), synchronise, hold its rows (or the
+    whole updated output) byte for byte and its flags against
+    ``lanes_plain`` on the card, and ``execute`` on the assembled operands
+    against its plain version.  Returns the flags."""
+    before = ex.execute_lanes.launches
+    got, bad = run_lanes(call)
+    torch.cuda.synchronize()
+    assert ex.execute_lanes.launches == before + 1
+    want, want_bad = run_lanes(call, ex.lanes_plain)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert bad.dtype == torch.int32 and torch.equal(bad, want_bad)
+    assert torch.equal(_lz_equal_plain(exec_args(call)), bad)
+    return bad
+
+
 def test_lz_exec_decode_cell_chunks(cuda):
     """The bench's decode batch (256 records of 24 KB at level 9): its 4
-    chunks [64, 24576] as _fused_decode builds them."""
+    chunks of 64 lanes [O 24576] in one launch of the fused kernel."""
     n = 24 << 10
     data = _corpus(6 << 20)
     frames = [compress(data[i:i + n], 9) for i in range(0, 6 << 20, n)]
+    before = ex.execute_lanes.launches
     calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
-    assert len(calls) == 4 and {a[0].shape[1] for a in calls} == {n}
-    assert max(int(a[5].max()) for a in calls) > 1000
-    for args in calls:
-        assert not _lz_equal_plain(args).any()
+    assert ex.execute_lanes.launches == before + 1
+    assert len(calls) == 1 and calls[0]["O"] == n
+    assert tuple(calls[0]["meta"].shape) == (256, 12)
+    assert int(calls[0]["meta"][:, 8].max()) > 1000
+    assert not _lanes_equal_plain(calls[0]).any()
 
 
 def test_lz_exec_multi_block_rounds(cuda):
-    """Two 400 KB level-3 frames: the dependent rounds [2, 131072], each
-    lane's window the 1 MB of content before its block."""
+    """Two 400 KB level-3 frames: the dependent rounds, each one launch
+    that reads its lanes' windows (the 1 MB of content before the block)
+    out of the accumulator and writes [2, 131072] rows into it in place."""
     data = _corpus(1 << 20)
     frames = [compress(data[:400_000], 3), compress(data[400_000:800_000], 3)]
     calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
-    assert len(calls) >= 3 and {a[0].shape[1] for a in calls} == {1 << 17}
-    for args in calls:
-        assert not _lz_equal_plain(args).any()
+    assert len(calls) >= 3 and {c["O"] for c in calls} == {1 << 17}
+    for call in calls:
+        assert call["out"] is not None and call["window"] is call["out"]
+        assert call["W"] == 1 << 20 and call["win_start"] is not None
+        assert not _lanes_equal_plain(call).any()
 
 
 def test_lz_exec_dictionary_window_row(cuda):
     """Dictionary set 2: the 112,640-byte dictionary's tail as one 128 KB
     window row broadcast to the lanes (stride 0), and its multi-block
-    frames' windows of content plus dictionary."""
+    frames' windows of content plus dictionary read in place."""
     from zstdsharp_tpu_torch.dictionary import parse_dictionary
 
     d, frames, _ = _dict_sets().load("corpus")
     pd = parse_dictionary(d)
     calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda,
                                                         ddict=pd))
-    assert any(a[1].shape[1] == 1 << 17 and a[1].stride(0) == 0
-               for a in calls)
-    for args in calls:
-        assert not _lz_equal_plain(args).any()
+    assert any(c["window"].shape[1] == 1 << 17
+               and c["window"].stride(0) == 0 for c in calls)
+    assert any(c["out"] is not None for c in calls)
+    for call in calls:
+        assert not _lanes_equal_plain(call).any()
+
+
+def test_lz_exec_dictionary_set_one_launch(cuda):
+    """Dictionary set 1 (5,000 JSON frames): every lane in one launch,
+    where the chunked executor took 79."""
+    from zstdsharp_tpu_torch.dictionary import parse_dictionary
+
+    d, frames, _ = _dict_sets().load("json")
+    pd = parse_dictionary(d)
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda,
+                                                        ddict=pd))
+    assert len(calls) == 1 and calls[0]["meta"].shape[0] == 5056
+    assert not _lanes_equal_plain(calls[0]).any()
+
+
+@pytest.mark.parametrize("N,S,O,W,sources,seed", [
+    (64, 256, 4096, 8, "all", 11),
+    (200, 1024, 24576, 1 << 15, "all", 12),
+    (5, 4096, 1 << 17, 1 << 17, "all", 13),
+    (33, 100, 3000, 0, "raw", 14),
+    (130, 4096, 24576, 8, "all", 15)])
+def test_lz_decode_random_corrupt_meta(cuda, N, S, O, W, sources, seed):
+    """Meta rows that index past every source, seg 0 and below, n_seq past
+    S, negative sequence values: the plain version's bytes and flags, and
+    no illegal address."""
+    call = lz_corrupt_lanes(np.random.default_rng(seed), N, S, O, W, cuda,
+                            sources)
+    assert _lanes_equal_plain(call).any()
+
+
+def test_lz_decode_many_lanes_one_launch(cuda):
+    """One launch serves any number of lanes: 300 lanes (more than the 64
+    of a chunk and than the card's SMs) and 65,600 lanes at O = 4096 (past
+    a 2-D grid's 65,535 in one dimension), each a copy of a decoded
+    record's lane."""
+    n = 4096
+    data = _corpus(1 << 20)
+    frames = [compress(data[i:i + n], 9) for i in range(0, 20 * n, n)]
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    call = calls[0]
+    assert call["O"] == n
+    for lanes in (300, 65_600):
+        idx = torch.arange(lanes, device=cuda) % 20
+        big = dict(call, meta=call["meta"][idx].contiguous(),
+                   window=call["window"][:1].expand(lanes, -1))
+        before = ex.execute_lanes.launches
+        rows, bad = run_lanes(big)
+        torch.cuda.synchronize()
+        assert ex.execute_lanes.launches == before + 1
+        assert not bad.any()
+        for k in (0, 7, lanes - 1):
+            assert rows[k].cpu().numpy().tobytes() == \
+                data[(k % 20) * n:(k % 20 + 1) * n]
+
+
+def test_lz_decode_in_place_round_equals_gather_scatter(cuda):
+    """A multi-block round in place (window read from the accumulator, rows
+    written into it) equals the same lanes' windows gathered, decoded into
+    new rows and scattered back, clamped starts included."""
+    data = _corpus(1 << 20)
+    frames = [compress(data[:400_000], 3), compress(data[400_000:800_000], 3)]
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    for call in calls[:3]:
+        for shift in (0, -(1 << 21), 1 << 24):  # in range, clamped low/high
+            c = dict(call, win_start=call["win_start"] + shift,
+                     out_start=call["out_start"] + shift)
+            got, bad = run_lanes(c)
+            acc = c["out"].clone()
+            A, W, O = acc.shape[1], c["W"], c["O"]
+            ws = c["win_start"].clamp(0, A - W)[:, None] + \
+                torch.arange(W, device=cuda)
+            rows, want_bad = ex.execute_lanes(
+                c["meta"], c["src"], c["S"], O, torch.gather(acc, 1, ws))
+            os_ = c["out_start"].clamp(0, A - O)[:, None] + \
+                torch.arange(O, device=cuda)
+            acc.scatter_(1, os_, rows)
+            assert torch.equal(got, acc) and torch.equal(bad, want_bad)
 
 
 @pytest.mark.parametrize("B,S,O,W,broadcast,seed", [
@@ -562,8 +663,8 @@ def test_lz_exec_flags_on_mutated_batch(cuda):
         except ZstdError:  # a host-routed frame the host rejects
             assert want is None
             calls = []
-        for args in calls:
-            flagged += int(_lz_equal_plain(args).any())
+        for call in calls:
+            flagged += int(_lanes_equal_plain(call).any())
         if want is None:
             rejected += 1
             with pytest.raises(ZstdError):

@@ -3,7 +3,9 @@
 window references, offsets past the window, offsets that reinterpret as
 negative int32, and out_len zeroing.  Outputs are bytes and must be equal.
 
-``execute`` (the decode plane's entry) is held on its plain path against
+``execute`` (the kernel's entry on assembled operands; the decode plane's
+entry, ``execute_lanes``, is tested in tests/test_torch_lz_decode.py) is
+held on its plain path against
 the reference and against ``walk``, a numpy walker written here that
 follows csrc/lz_exec.cu's algorithm, so the kernel's algorithm is checked
 on the CPU although the CUDA cannot run here.  Its per-lane flags

@@ -20,8 +20,10 @@ committed dictionary sets of tests/torch_data/dict_sets.py (``json`` and
 times (set ``corpus`` has multi-block frames, so ``mb_exec``).  Each turn
 ends with one decode of the workload under torch.profiler: wall ms, device
 events, the device's busy ms (the union of their intervals) and share,
-and device ms by kernel name.  Prints one JSON line per turn and writes
-the list to ``--out``.
+the LZ executor kernel's launches and device ms (``lz_exec_launches``,
+``lz_exec_device_ms``), and device ms by kernel name.  Prints one JSON
+line per turn, the ``exec`` / ``mb_exec`` stages among its stage medians,
+and writes the list to ``--out``.
 
     python tools/torch_decode_ab.py --tree build/ab/parent --tree . \\
         --out build/decode_ab.json
@@ -38,6 +40,9 @@ from pathlib import Path
 
 REC_SIZE = 24 << 10
 DICT_SETS = ("json", "corpus")
+# the LZ executor kernel's name in csrc/lz_exec.cu: the one-chunk executor
+# (lz_exec_kernel) and the fused lane decode that replaced it (lz_kernel)
+LZ_KERNELS = ("lz_exec_kernel", "lz_kernel")
 
 
 def _time(call, reps: int) -> tuple[list, dict]:
@@ -79,8 +84,12 @@ def _profile(call) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    lz = [e for e in events if any(k in e.name for k in LZ_KERNELS)]
     return {"wall_ms": wall, "device_events": len(events),
             "device_busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall,
+            "lz_exec_launches": len(lz),
+            "lz_exec_device_ms": sum(e.time_range.elapsed_us()
+                                     for e in lz) / 1e3,
             "device_ms_by_name": dict(top)}
 
 

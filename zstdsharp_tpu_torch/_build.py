@@ -129,5 +129,9 @@ def load() -> ctypes.CDLL:
         lib.zt_lz_exec.restype = i
         lib.zt_lz_exec.argtypes = [p, q, p, q, q, p, p, p, q, p, p, p, p, p,
                                    q, p, p, p, i, i, i, p]
+        lib.zt_lz_decode.restype = i
+        lib.zt_lz_decode.argtypes = [p, q, p, q, p, q, q, p, p, p, q, q, p, p,
+                                     p, q, q, p, q, q, q, p, p, q, q, q, p, q,
+                                     q, p, p, p, i, i, p]
         _lib = lib
         return lib

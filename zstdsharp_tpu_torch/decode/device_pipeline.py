@@ -50,6 +50,8 @@ import ctypes
 import threading
 import time
 from dataclasses import dataclass, field
+from itertools import chain
+from operator import attrgetter
 
 import numpy as np
 import torch
@@ -60,7 +62,7 @@ from ..errors import ZstdError, ZstdErrorCode
 from ..ops import device_fse as df
 from ..ops import device_huf as dh
 from ..ops._launch import resolve_device
-from ..ops.execseq import execute
+from ..ops.execseq import LaneSources, execute, execute_lanes, lanes_plain
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
                     decode_sequences)
@@ -798,69 +800,17 @@ def ops_to_device(ops: dict, device) -> dict:
         for k, v in ops.items()}
 
 
-def _dyn_slice(flat: torch.Tensor, starts: torch.Tensor, size: int):
-    """Rows flat[start : start+size] per start, with each start clamped so
-    the slice fits (jax.lax.dynamic_slice semantics)."""
-    st = starts.clamp(0, flat.numel() - size)
-    return flat[st[:, None] + torch.arange(size, device=flat.device)]
-
-
-def _fused_decode(meta, huf_flat, huf_T, fse_rows, fse_T, h_rows, raw_flat,
-                  window, S, L):
-    """Per-lane metadata + kernel outputs -> decoded bytes [B, L] uint8
-    (reference _fused_decode with its L = O: the literal rows are as wide
-    as the output).  meta [B, 12] int64: lit_kind, pool_base, pool_len,
-    huf_lane0, huf_seg, seq_kind, fse_lane, host_row, n_seq, lit_regen,
-    out_len, win_len.  window [B, W] uint8.  Returns (rows, the lanes'
-    flags int32 [B])."""
-    dev = meta.device
-    B = meta.shape[0]
-    lit_kind, pool_base, pool_len, lane0 = meta[:, 0], meta[:, 1], \
-        meta[:, 2], meta[:, 3]
-    seg = meta[:, 4].clamp(min=1)
-    seq_kind = meta[:, 5]
-    fse_lane = meta[:, 6].clamp(min=0)
-    host_row = meta[:, 7].clamp(min=0)
-    n_seq, lit_regen, out_len = meta[:, 8], meta[:, 9], meta[:, 10]
-    win_len = meta[:, 11]
-
-    i = torch.arange(L, device=dev)[None, :]
-    # raw-pool span per lane; an RLE span (pool_len 1) repeats its byte
-    raw_pad = torch.nn.functional.pad(raw_flat, (0, L + 8))
-    lit = _dyn_slice(raw_pad, pool_base, L)
-    lit = torch.where(pool_len[:, None] == 1, lit[:, :1], lit)
-    if huf_flat is not None:
-        # a lane's 4 streams are 4 consecutive T-rows of the flat kernel
-        # output; stitch the quarters at their real lengths
-        huf_pad = torch.nn.functional.pad(huf_flat, (0, 4 * huf_T + 8))
-        quads = _dyn_slice(huf_pad, lane0.clamp(min=0) * huf_T, 4 * huf_T)
-        s = (i // seg[:, None]).clamp(max=3)
-        qi = (s * huf_T + (i - s * seg[:, None])).clamp(0, 4 * huf_T - 1)
-        lit_huf = torch.gather(quads, 1, qi).to(torch.uint8)
-        lit = torch.where(lit_kind[:, None] == 1, lit_huf, lit)
-
-    def rows_from(src, idx, T):
-        r = src[idx.clamp(max=src.shape[0] - 1)]
-        if T < S:
-            r = torch.nn.functional.pad(r, (0, S - T))
-        return r[:, :S]
-
-    zero = torch.zeros(B, S, dtype=torch.int32, device=dev)
-    ll, ml, off = zero, zero, torch.ones_like(zero)
-    for kind, rows, idx, T in ((1, fse_rows, fse_lane, fse_T),
-                               (2, h_rows, host_row, S)):
-        if rows is None:
-            continue
-        m = (seq_kind == kind)[:, None]
-        ll = torch.where(m, rows_from(rows[0], idx, T), ll)
-        ml = torch.where(m, rows_from(rows[1], idx, T), ml)
-        off = torch.where(m, rows_from(rows[2], idx, T), off)
-
-    live = torch.arange(S, device=dev)[None, :] < n_seq[:, None]
-    sum_ll = torch.where(live, ll.to(torch.int64), 0).sum(dim=1)
-    last_lit = lit_regen - sum_ll
-    return execute(lit, window, ll, ml, off, n_seq.contiguous(), last_lit,
-                   out_len.contiguous(), win_len.contiguous())
+def _fused_decode(meta, src, S, O, window, **at):
+    """Decode lanes (meta int64 [N, 12], sources ``execseq.LaneSources``;
+    `at`: ``execute_lanes``' window and output starts): on a card one
+    launch of ``execute_lanes`` over every lane, and never anything else;
+    on the CPU its plain version, ``lanes_plain`` (the torch assembly,
+    EXEC_LANES lanes at a time), through this module's ``execute``.
+    Returns (rows or the updated output, the lanes' flags int32 [N])."""
+    if meta.device.type == "cuda":
+        return execute_lanes(meta, src, S, O, window, **at)
+    return lanes_plain(meta, src, S, O, window, run=execute,
+                       chunk=EXEC_LANES, **at)
 
 
 # the executor's flag bits (ops.execseq.lane_flags), as the error says them
@@ -869,12 +819,25 @@ _FLAG_REASONS = ((0, "literal lengths overrun the literal section"),
                  (2, "an offset reaches before the decoded output"))
 
 
-def _meta_row(b, win_len):
-    """A lane's meta row; `win_len` is the real bytes before its first
-    output byte that a match may reach (the flags' offset limit)."""
-    return (b.lit_kind, b.pool_base, b.pool_len, b.huf_lane0, b.huf_seg,
-            b.seq_kind, b.fse_lane, b.host_row, b.n_seq, b.lit_regen,
-            b.out_len, win_len)
+_META_FIELDS = attrgetter("lit_kind", "pool_base", "pool_len", "huf_lane0",
+                          "huf_seg", "seq_kind", "fse_lane", "host_row",
+                          "n_seq", "lit_regen", "out_len")
+
+
+def _meta_array(blocks, win_len, rows: int | None = None) -> np.ndarray:
+    """The lanes' meta rows, int64 [rows (default len(blocks)), 12]: each
+    block's fields, then `win_len` (a scalar or one a block), the real
+    bytes before its first output byte that a match may reach (the flags'
+    offset limit); rows past the blocks are zero (padding lanes: a zero
+    row, zero flags)."""
+    n = len(blocks)
+    meta = np.zeros((n if rows is None else rows, 12), np.int64)
+    if n:
+        meta[:n, :11] = np.fromiter(
+            chain.from_iterable(map(_META_FIELDS, blocks)), np.int64,
+            11 * n).reshape(n, 11)
+        meta[:n, 11] = win_len
+    return meta
 
 
 def _mb_groups(mb_frames, max_group: int = 16):
@@ -909,7 +872,8 @@ def _window_rows(tail: bytes, B: int, device) -> torch.Tensor:
     right-aligned in the smallest of 4 KB, 32 KB and 128 KB that holds it,
     one row broadcast to all B lanes; 8 zero bytes without a dictionary."""
     if not tail:
-        return torch.zeros(B, 8, dtype=torch.uint8, device=device)
+        return torch.zeros(1, 8, dtype=torch.uint8,
+                           device=device).expand(B, 8)
     W = next(w for w in (1 << 12, 1 << 15, 1 << 17) if len(tail) <= w)
     row = torch.zeros(W, dtype=torch.uint8)
     row[W - len(tail):] = torch.frombuffer(bytearray(tail), dtype=torch.uint8)
@@ -1005,22 +969,20 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
         fence.record(torch.cuda.current_stream(device))
     _release_ops(nb, fence)
 
-    # ---- stage 2: assemble lanes + execute, EXEC_LANES at a time ----
+    # ---- stage 2: every lane in one call (one launch on a card) ----
+    src = LaneSources(raw_flat, huf_flat, huf_T, fse_rows, h_rows)
     O = _bucket(max(plan.max_out, 1), _O_BUCKETS)
     B = EXEC_LANES
-    window = _window_rows(plan.window, B, device)
     outputs, flags = [], []
     lengths = np.array([b.out_len for b in plan.blocks], np.int64)
-    for c0 in range(0, len(plan.blocks), B):
-        meta = np.zeros((B, 12), np.int64)
-        for k, b in enumerate(plan.blocks[c0:c0 + B]):
-            meta[k] = _meta_row(b, len(plan.window))
+    if plan.blocks:
+        n = -(-len(plan.blocks) // B) * B  # padding lanes: zero meta rows
         rows, bad = _fused_decode(
-            torch.from_numpy(meta).to(device), huf_flat, huf_T, fse_rows,
-            fse_T, h_rows, raw_flat, window, S, O)
-        outputs.append(rows)
+            torch.from_numpy(_meta_array(plan.blocks, len(plan.window),
+                                         n)).to(device),
+            src, S, O, _window_rows(plan.window, n, device))
+        outputs = list(rows.split(B))
         flags.append(bad)
-    if outputs:
         tick("exec")
 
     # ---- multi-block frames: dependent execution rounds ----
@@ -1037,32 +999,32 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
         if plan.window:  # the dictionary's tail ends each frame's window
             acc[:, Wb - len(plan.window):Wb] = torch.frombuffer(
                 bytearray(plan.window), dtype=torch.uint8).to(device)
-        cols_w = torch.arange(Wb, device=device)[None, :]
-        cols_o = torch.arange(O_max, device=device)[None, :]
         group_bad = torch.zeros(F, dtype=torch.int32, device=device)
         for r in range(n_rounds):
-            meta = np.zeros((F, 12), np.int64)
-            starts = np.full(F, Cb, np.int64)  # inactive lanes: padding tail
-            for k, f in enumerate(group):
-                if r < len(f["blocks"]):
-                    b = f["blocks"][r]
-                    # a match may reach the frame's output before the block
-                    # and the dictionary, as far as the Wb-byte window holds
-                    meta[k] = _meta_row(
-                        b, min(b.out_off + len(plan.window), Wb))
-                    starts[k] = b.out_off
-            st = torch.from_numpy(starts).to(device)
-            # window = the Wb bytes before this block's output (clamped
-            # starts, as jax.lax.dynamic_slice / dynamic_update_slice)
-            ws = st.clamp(0, acc.shape[1] - Wb)[:, None] + cols_w
-            windows = torch.gather(acc, 1, ws)
-            outs, bad = _fused_decode(
-                torch.from_numpy(meta).to(device), huf_flat, huf_T,
-                fse_rows, fse_T, h_rows, raw_flat, windows, S, O_max)
+            # one upload a round: the meta rows, then each lane's window
+            # start and output start.  Lane k's window is the Wb bytes
+            # before its block's output in row k of acc, its output the
+            # O_max bytes from there (starts clamped into the row, as
+            # jax.lax.dynamic_slice / dynamic_update_slice); an inactive
+            # lane starts at Cb and writes zeros past its content (padding)
+            buf = np.zeros(F * 14, np.int64)
+            meta, starts = buf[:F * 12].reshape(F, 12), buf[F * 12:]
+            starts[:F] = Cb
+            ks = [k for k, f in enumerate(group) if r < len(f["blocks"])]
+            blocks = [group[k]["blocks"][r] for k in ks]
+            out_off = np.array([b.out_off for b in blocks], np.int64)
+            # a match may reach the frame's output before the block and the
+            # dictionary, as far as the Wb-byte window holds
+            meta[ks] = _meta_array(
+                blocks, np.minimum(out_off + len(plan.window), Wb))
+            starts[ks] = out_off
+            starts[F:] = Wb + starts[:F]
+            t = torch.from_numpy(buf).to(device)
+            _, bad = _fused_decode(
+                t[:F * 12].view(F, 12), src, S, O_max, acc,
+                win_start=t[F * 12:F * 13], W=Wb, out=acc,
+                out_start=t[F * 13:])
             group_bad |= bad  # inactive lanes flag nothing
-            # inactive lanes write zeros past their content (padding)
-            os_ = (Wb + st).clamp(0, acc.shape[1] - O_max)[:, None] + cols_o
-            acc.scatter_(1, os_, outs)
         for k, f in enumerate(group):
             mb_device[f["frame_idx"]] = (
                 acc[k, Wb:Wb + f["content"]], f["content"], f["checksum"])

@@ -40,9 +40,10 @@ held to.
    checked against the plain version on each window and timed in turns
    (the baselines, the kernel twice, the baselines in reverse).
 
-``capture_exec``, ``lz_work``, ``lz_corrupt`` and ``lz_plain`` serve the
-LZ executor kernel (``csrc/lz_exec.cu``), which chip_smoke.py and the card
-tests check and time on the operands the decode plane gives it.
+``capture_exec``, ``run_lanes``, ``exec_args``, ``lz_work``,
+``lz_corrupt`` and ``lz_corrupt_lanes`` serve the LZ executor kernel
+(``csrc/lz_exec.cu``), which chip_smoke.py and the card tests check and
+time on the calls the decode plane makes.
 
 Prints what ``nvcc -Xptxas -v`` reports for each source built alone.
 Every time is printed beside the card's name and power limit, and the
@@ -133,62 +134,113 @@ def hist_work(data: torch.Tensor, mask=None) -> tuple[int, int]:
     return n_bytes + rows * 256 * 4, 2 * data.numel()
 
 
-def lz_work(args) -> tuple[int, int]:
-    """(bytes, operations) of one ``execseq.execute`` call on `args` (lit,
-    window, ll, ml, off, n_seq, last_lit, out_len, win_len): the [B, O]
-    output (O = L) written, each lane's literals read (its live ll and
-    last_lit, at most L), the distinct window bytes its matches read (one
-    row for a broadcast window), 12 bytes a live sequence, 32 a lane read
-    and its 4-byte flags written; about 4 operations an output byte below
+def lz_work(call) -> tuple[int, int]:
+    """(bytes, operations) of one ``execseq.execute_lanes`` call (a
+    ``capture_exec`` record), counted as the fused kernel reads and
+    writes: each lane's live literals (its live ll and last_lit, at most
+    O) from their source -- an int32 Huffman symbol, 4 bytes, a literal; a
+    raw pool byte; an RLE lane's one byte --, 12 bytes a live sequence of
+    a lane with sequence rows, the distinct window bytes its matches read
+    (one row for a broadcast window), 96 bytes of meta, the O output bytes
+    and the 4-byte flags written; about 4 operations an output byte below
     out_len and 24 a sequence (the walk and the flags' checks)."""
-    lit, window, ll, ml, off, n_seq, last_lit, out_len, _ = args
-    B, L = lit.shape
-    O, W, S = L, window.shape[1], ll.shape[1]
+    lit, window, ll, ml, off, n_seq, last_lit, out_len, _ = exec_args(call)
+    meta, src = call["meta"], call["src"]
+    N, O = lit.shape
+    W, S = window.shape[1], ll.shape[1]
     dev = lit.device
     n = n_seq.clamp(0, S)
     live = torch.arange(S, device=dev)[None, :] < n[:, None]
     lk = torch.where(live, ll.long(), 0).clamp(min=0)
     mk = torch.where(live, ml.long(), 0).clamp(min=0)
-    lit_bytes = int((lk.sum(1) + last_lit.clamp(min=0)).clamp(max=L).sum())
+    lit_bytes = (lk.sum(1) + last_lit.clamp(min=0)).clamp(max=O)
+    huf = (meta[:, 0] == 1) & (src.huf is not None)
+    rle = ~huf & (meta[:, 2] == 1)
+    lit_read = torch.where(huf, 4 * lit_bytes,
+                           torch.where(rle, lit_bytes.clamp(max=1),
+                                       lit_bytes))
+    rows = (((meta[:, 5] == 1) & (src.fse is not None))
+            | ((meta[:, 5] == 2) & (src.host is not None)))
+    # the window bytes: the union of each lane's match sources below 0
     size = lk + mk
     ms = torch.cumsum(size, 1) - size + lk
     o = off.long().clamp(min=1)
     a = (W + ms - o).clamp(0, W)
     e = (W + ms - o + torch.minimum(mk, o)).clamp(0, W)
-    shared = B > 1 and window.stride(0) == 0
-    rows = torch.zeros(B, S, dtype=torch.long, device=dev) if shared else \
-        torch.arange(B, device=dev)[:, None].expand(B, S)
+    shared = N > 1 and window.stride(0) == 0
+    row = torch.zeros(N, S, dtype=torch.long, device=dev) if shared else \
+        torch.arange(N, device=dev)[:, None].expand(N, S)
     keep = live & (e > a)
-    marks = torch.zeros(1 if shared else B, W + 1, dtype=torch.long,
+    marks = torch.zeros(1 if shared else N, W + 1, dtype=torch.long,
                         device=dev)
-    marks.index_put_((rows[keep], a[keep]), torch.ones_like(a[keep]),
+    marks.index_put_((row[keep], a[keep]), torch.ones_like(a[keep]),
                      accumulate=True)
-    marks.index_put_((rows[keep], e[keep]), -torch.ones_like(e[keep]),
+    marks.index_put_((row[keep], e[keep]), -torch.ones_like(e[keep]),
                      accumulate=True)
     win_bytes = int((torch.cumsum(marks[:, :W], 1) > 0).sum())
     seqs = int(n.sum())
-    n_bytes = B * O + lit_bytes + win_bytes + 12 * seqs + 36 * B
+    n_bytes = (N * O + int(lit_read.sum()) + win_bytes
+               + 12 * int(torch.where(rows, n, 0).sum()) + 100 * N)
     return n_bytes, 4 * int(out_len.clamp(0, O).sum()) + 24 * seqs
 
 
 def capture_exec(run) -> list:
-    """Call ``run()`` with the decode plane's ``execute`` recording its
-    operands: the args of every call, the tensors as passed (none is
-    written after the call)."""
+    """Call ``run()`` with the decode plane's ``execute_lanes`` recording
+    each call: a dict of its arguments (meta, src, S, O, window,
+    win_start, W, out, out_start), the tensors as passed (none is written
+    after the call) except an output written in place (a multi-block
+    round's accumulator), recorded as a copy taken before the call and
+    recorded as the window too where it was one."""
     from .decode import device_pipeline as dp
 
-    calls, real = [], dp.execute
+    calls, real = [], dp.execute_lanes
 
-    def spy(*args):
-        calls.append(args)
-        return real(*args)
+    def spy(meta, src, S, O, window, win_start=None, W=None, out=None,
+            out_start=None):
+        snap = None if out is None else out.clone()
+        calls.append({"meta": meta, "src": src, "S": S, "O": O,
+                      "window": snap if window is out else window,
+                      "win_start": win_start, "W": W, "out": snap,
+                      "out_start": out_start})
+        return real(meta, src, S, O, window, win_start, W, out, out_start)
 
-    dp.execute = spy
+    dp.execute_lanes = spy
     try:
         run()
     finally:
-        dp.execute = real
+        dp.execute_lanes = real
     return calls
+
+
+def run_lanes(call, fn=None):
+    """`fn` (default ``execseq.execute_lanes``; ``execseq.lanes_plain``
+    for the plain version) on a ``capture_exec`` record, an in-place
+    output on a fresh copy of the record's: (rows or that output, the
+    lanes' flags)."""
+    fn = execseq.execute_lanes if fn is None else fn
+    c = dict(call)
+    if c["out"] is not None:
+        acc = c["out"].clone()
+        c["window"] = acc if call["window"] is call["out"] else c["window"]
+        c["out"] = acc
+    return fn(**c)
+
+
+def exec_args(call) -> list:
+    """``execute``'s operands for all the lanes of a ``capture_exec``
+    record, as its plain version assembles them (each lane's window
+    gathered from its row; win_len last)."""
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return (torch.zeros_like(args[0]),
+                torch.zeros(args[0].shape[0], dtype=torch.int32,
+                            device=args[0].device))
+
+    run_lanes(call, lambda **c: execseq.lanes_plain(
+        **c, run=record, chunk=max(c["meta"].shape[0], 1)))
+    return list(seen[0])
 
 
 def lz_corrupt(rng, B: int, S: int, O: int, W: int, dev,
@@ -216,13 +268,50 @@ def lz_corrupt(rng, B: int, S: int, O: int, W: int, dev,
     return args
 
 
-def lz_plain(args) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain versions of ``execute`` on `args`, on their device: (the
-    rows, the lanes' flags)."""
-    B, O = args[0].shape
-    return (execseq.make_executor(B, args[2].shape[1], O, args[1].shape[1],
-                                  O)(*args[:8]),
-            execseq.lane_flags(*args[2:]))
+def lz_corrupt_lanes(rng, N: int, S: int, O: int, W: int, dev,
+                     sources: str = "all") -> dict:
+    """An ``execute_lanes`` call (a ``capture_exec`` record) no planner
+    would make: random sources (a pool, Huffman rows of a random width T,
+    FSE rows narrower than S, host rows; `sources` "all", or "raw" for the
+    pool alone) with random bytes and int32 values (half of the sequence
+    values small), and meta rows whose every column runs past both ends
+    of what it indexes: literal kinds 0-2, pool_base and huf_lane0 past
+    the pool and the rows, pool_len 0-2, huf_seg from -2 to O, seq kinds
+    0-3, fse_lane and host_row past their rows, n_seq past S, lit_regen
+    any, out_len up to O, win_len up to 2 W; windows of W bytes a lane."""
+    def i32(shape, mod):
+        v = rng.integers(-2**31, 2**31, shape).astype(np.int32)
+        return np.where(rng.random(shape) < 0.5, v % mod, v).astype(np.int32)
+
+    n_raw = int(rng.integers(1, 3 * O))
+    T = int(rng.integers(8, max(O // 2, 9)))
+    n_huf = int(rng.integers(4, 40))
+    n_fse, T_f = int(rng.integers(1, 9)), int(rng.integers(1, S + 1))
+    n_host = int(rng.integers(1, 9))
+    full = sources == "all"
+    src = execseq.LaneSources(
+        torch.from_numpy(rng.integers(0, 256, n_raw, dtype=np.uint8)),
+        torch.from_numpy(i32(n_huf * T, 256)) if full else None, T,
+        tuple(torch.from_numpy(i32((n_fse, T_f), m)) for m in
+              (40, 60, 2 * O + W)) if full else None,
+        tuple(torch.from_numpy(i32((n_host, S), m)) for m in
+              (40, 60, 2 * O + W)) if full else None)
+    cols = [rng.integers(0, 3, N), rng.integers(-10, n_raw + 50, N),
+            rng.choice([0, 1, 1, 2, 500], N),
+            rng.integers(-3, n_huf + 5, N), rng.integers(-2, O + 1, N),
+            rng.integers(0, 4, N), rng.integers(-3, n_fse + 3, N),
+            rng.integers(-3, n_host + 3, N), rng.integers(-3, S + 4, N),
+            rng.integers(-2**40, 2**40, N), rng.integers(-5, O + 1, N),
+            rng.integers(0, 2 * W + 1, N)]
+    meta = torch.from_numpy(np.stack(cols, 1).astype(np.int64))
+    src = execseq.LaneSources(*(
+        t.to(dev) if isinstance(t, torch.Tensor) else
+        tuple(r.to(dev) for r in t) if isinstance(t, tuple) else t
+        for t in src))
+    window = torch.from_numpy(rng.integers(0, 256, (N, W), dtype=np.uint8))
+    return {"meta": meta.to(dev), "src": src, "S": S, "O": O,
+            "window": window.to(dev), "win_start": None, "W": None,
+            "out": None, "out_start": None}
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,21 @@
 """LZ sequence execution: CUDA kernel and plain torch version (counterpart
-of zstdsharp_tpu/ops/execseq.py, ZSTD_execSequence:2187 role).
+of zstdsharp_tpu/ops/execseq.py, ZSTD_execSequence:2187 role, and of the
+reference decode plane's _fused_decode, its literal assembly included).
 
-``execute(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len)``
-is the decode plane's entry: CPU tensors run the plain versions
-(``make_executor``'s run and ``lane_flags``), CUDA tensors launch
-``csrc/lz_exec.cu`` (one block per lane walking its sequences in order;
-its source note says what bounds it and how the design answers).  Both
-give the same bytes and the same per-lane flags on any operands.
+``execute_lanes(meta, src, S, O, window, ...)`` is the decode plane's
+entry: every lane of a batch straight from the plane's sources (the
+literal pool, the Huffman kernel's int32 rows, the FSE kernel's and the
+host's sequence rows) through its int64 meta row, its window and its
+output optionally at a start within a row (a multi-block round reads and
+writes its frame accumulator in place).  CPU tensors run its plain
+version (``lanes_plain``: ``assemble``, the torch literal assembly, then
+``make_executor``'s run and ``lane_flags``); CUDA tensors launch
+``csrc/lz_exec.cu``'s ``zt_lz_decode`` once for all lanes (one block per
+lane walking its sequences in order; its source note says what bounds it
+and how the design answers).  ``execute(lit, window, ll, ml, off, n_seq,
+last_lit, out_len, win_len)`` takes the assembled operands and reaches
+the same kernel body through ``zt_lz_exec``.  Each gives the same bytes
+and the same per-lane flags as its plain version on any operands.
 
 The flags are libzstd's checks on a block's sequences (ZSTD_execSequence,
 ZSTD_decompressSequences), computed on the operands: bit 0, the literal
@@ -46,6 +55,9 @@ reach: there the two differ, and this version is the kernel's definition.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -65,6 +77,27 @@ def _as_i32(a: torch.Tensor) -> torch.Tensor:
 # the kernel's output row lives in shared memory: 227 KB, the most a block
 # may opt into, less 8 KB for its static part (csrc/lz_exec.cu kSmemMax)
 MAX_O = 232448 - 8192
+# shared memory an H100 SM holds, and what each resident block takes
+# besides its dynamic part: the 1 KB the CUDA runtime reserves a block and
+# the static allowance
+_SM_SMEM, _BLOCK_SMEM = 233472, 1024 + 8192
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stage_bytes(N: int, S: int, O: int, n_sm: int) -> int:
+    """Shared memory a block of the lane decode gets past its O-byte row
+    for staging its lane's sequence rows (12 bytes a live sequence) and
+    literals (at most O): as much as they can need, but no more than lets
+    ceil(N / n_sm) blocks (at most 8) share an SM, so a batch that fits
+    one wave still does; a multiple of 16."""
+    o16 = (O + 15) & ~15
+    per_sm = min(max(-(-N // max(n_sm, 1)), 1), 8)
+    room = _SM_SMEM // per_sm - _BLOCK_SMEM - o16
+    return max(min(room, o16 + 12 * S, MAX_O - o16), 0) & ~15
 
 
 def _rounds(S: int, O: int) -> tuple[int, int]:
@@ -185,6 +218,16 @@ def lane_flags(ll, ml, off, n_seq, last_lit, out_len, win_len
     return bad
 
 
+def execute_plain(lit, window, ll, ml, off, n_seq, last_lit, out_len,
+                  win_len) -> tuple[torch.Tensor, torch.Tensor]:
+    """``execute``'s plain version on the operands' device:
+    ``make_executor``'s run and ``lane_flags``."""
+    B, O = lit.shape
+    return (make_executor(B, ll.shape[1], O, window.shape[1], O)(
+                lit, window, ll, ml, off, n_seq, last_lit, out_len),
+            lane_flags(ll, ml, off, n_seq, last_lit, out_len, win_len))
+
+
 def _check_window(window, B: int, dev: torch.device) -> int:
     """Raise unless window is uint8 [B, W] on dev whose rows are contiguous
     and either W bytes apart or one row broadcast to all (stride 0, as
@@ -236,9 +279,8 @@ def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len
                     ("out_len", out_len), ("win_len", win_len)):
         check_operand(name, t, (B,), dev, torch.int64)
     if dev.type == "cpu":
-        return (make_executor(B, S, O, W, O)(lit, window, ll, ml, off, n_seq,
-                                             last_lit, out_len),
-                lane_flags(ll, ml, off, n_seq, last_lit, out_len, win_len))
+        return execute_plain(lit, window, ll, ml, off, n_seq, last_lit,
+                             out_len, win_len)
     check_cuda(dev)
     if not 0 < O <= MAX_O:
         raise ValueError(f"O {O}: the kernel takes 1 to {MAX_O}")
@@ -261,3 +303,224 @@ def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len
 
 
 execute.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the decode plane's entry: every lane from its meta row and the sources
+
+META_COLS = 12  # lit_kind, pool_base, pool_len, huf_lane0, huf_seg, seq_kind,
+#                 fse_lane, host_row, n_seq, lit_regen, out_len, win_len
+
+
+class LaneSources(NamedTuple):
+    """What a lane's meta row points into: the literal pool (uint8 [n_raw];
+    the decode plane appends one zero byte), the Huffman kernel's rows
+    flattened (int32 [n_huf], huf_T a row; a lane's 4 streams are 4
+    consecutive rows) or None, and the sequence rows of the FSE kernel and
+    of the host (each 3 int32 [rows, T]: ll, ml, off) or None."""
+
+    raw: torch.Tensor
+    huf: torch.Tensor | None = None
+    huf_T: int = 0
+    fse: tuple | None = None
+    host: tuple | None = None
+
+
+def _dyn_slice(flat: torch.Tensor, starts: torch.Tensor, size: int):
+    """Rows flat[start : start+size] per start, with each start clamped so
+    the slice fits (jax.lax.dynamic_slice semantics)."""
+    st = starts.clamp(0, flat.numel() - size)
+    return flat[st[:, None] + torch.arange(size, device=flat.device)]
+
+
+def assemble(meta, src: LaneSources, S: int, O: int) -> tuple:
+    """The torch literal assembly (reference _fused_decode with its L = O:
+    the literal rows are as wide as the output): meta int64 [B, 12] ->
+    ``execute``'s operands but the window: (lit uint8 [B, O], ll/ml/off
+    int32 [B, S], n_seq, last_lit, out_len, win_len int64 [B])."""
+    dev = meta.device
+    B, L = meta.shape[0], O
+    lit_kind, pool_base, pool_len, lane0 = meta[:, 0], meta[:, 1], \
+        meta[:, 2], meta[:, 3]
+    seg = meta[:, 4].clamp(min=1)
+    seq_kind = meta[:, 5]
+    fse_lane = meta[:, 6].clamp(min=0)
+    host_row = meta[:, 7].clamp(min=0)
+    n_seq, lit_regen = meta[:, 8], meta[:, 9]
+
+    i = torch.arange(L, device=dev)[None, :]
+    # raw-pool span per lane; an RLE span (pool_len 1) repeats its byte
+    raw_pad = torch.nn.functional.pad(src.raw, (0, L + 8))
+    lit = _dyn_slice(raw_pad, pool_base, L)
+    lit = torch.where(pool_len[:, None] == 1, lit[:, :1], lit)
+    if src.huf is not None:
+        # a lane's 4 streams are 4 consecutive T-rows of the flat kernel
+        # output; stitch the quarters at their real lengths
+        T = src.huf_T
+        huf_pad = torch.nn.functional.pad(src.huf, (0, 4 * T + 8))
+        quads = _dyn_slice(huf_pad, lane0.clamp(min=0) * T, 4 * T)
+        s = (i // seg[:, None]).clamp(max=3)
+        qi = (s * T + (i - s * seg[:, None])).clamp(0, 4 * T - 1)
+        lit_huf = torch.gather(quads, 1, qi).to(torch.uint8)
+        lit = torch.where(lit_kind[:, None] == 1, lit_huf, lit)
+
+    def rows_from(rows, idx):
+        r = rows[idx.clamp(max=rows.shape[0] - 1)]
+        T = rows.shape[1]
+        if T < S:
+            r = torch.nn.functional.pad(r, (0, S - T))
+        return r[:, :S]
+
+    zero = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    ll, ml, off = zero, zero, torch.ones_like(zero)
+    for kind, rows, idx in ((1, src.fse, fse_lane), (2, src.host, host_row)):
+        if rows is None:
+            continue
+        m = (seq_kind == kind)[:, None]
+        ll = torch.where(m, rows_from(rows[0], idx), ll)
+        ml = torch.where(m, rows_from(rows[1], idx), ml)
+        off = torch.where(m, rows_from(rows[2], idx), off)
+
+    live = torch.arange(S, device=dev)[None, :] < n_seq[:, None]
+    sum_ll = torch.where(live, ll.to(torch.int64), 0).sum(dim=1)
+    last_lit = lit_regen - sum_ll
+    return (lit, ll, ml, off, n_seq.contiguous(), last_lit,
+            meta[:, 10].contiguous(), meta[:, 11].contiguous())
+
+
+def lanes_plain(meta, src: LaneSources, S: int, O: int, window,
+                win_start=None, W: int | None = None, out=None,
+                out_start=None, run=None, chunk: int = 64):
+    """``execute_lanes``' plain version on the operands' device, `chunk`
+    lanes at a time (lanes are independent; this bounds the plain
+    executor's [chunk, O] int64 temporaries): each lane's window gathered
+    from its row, ``assemble``, `run` (default ``execute_plain``; any
+    callable with ``execute``'s contract) and the rows scattered into
+    `out` at their clamped starts, or returned as [N, O]."""
+    run = execute_plain if run is None else run
+    dev = meta.device
+    N, A = meta.shape[0], window.shape[1]
+    W = A if W is None else W
+    gather = win_start is not None or W != A
+    rows, flags = [], []
+    for c0 in range(0, N, chunk):
+        sl = slice(c0, c0 + chunk)
+        win = window[sl]
+        if gather:
+            st = (win_start[sl] if win_start is not None else
+                  torch.zeros(win.shape[0], dtype=torch.int64, device=dev))
+            win = torch.gather(win, 1, st.clamp(0, A - W)[:, None]
+                               + torch.arange(W, device=dev))
+        lit, *ops = assemble(meta[sl], src, S, O)
+        r, bad = run(lit, win, *ops)
+        flags.append(bad)
+        if out is None:
+            rows.append(r)
+            continue
+        st = (out_start[sl] if out_start is not None else
+              torch.zeros(r.shape[0], dtype=torch.int64, device=dev))
+        out[sl].scatter_(1, st.clamp(0, out.shape[1] - O)[:, None]
+                         + torch.arange(O, device=dev), r)
+    if out is None:
+        out = (torch.cat(rows) if rows else
+               torch.zeros((0, O), dtype=torch.uint8, device=dev))
+    bad = (torch.cat(flags) if flags else
+           torch.zeros(0, dtype=torch.int32, device=dev))
+    return out, bad
+
+
+def _check_sources(src: LaneSources, dev: torch.device) -> None:
+    if not isinstance(src.raw, torch.Tensor) or src.raw.dim() != 1:
+        raise ValueError("src.raw: expected a uint8 tensor [n_raw]")
+    check_operand("src.raw", src.raw, (src.raw.shape[0],), dev, torch.uint8)
+    if src.huf is not None:
+        check_operand("src.huf", src.huf, (None,), dev)
+        if src.huf_T < 1:
+            raise ValueError(f"src.huf_T {src.huf_T}: expected >= 1")
+    for name, rows in (("src.fse", src.fse), ("src.host", src.host)):
+        if rows is None:
+            continue
+        if len(rows) != 3:
+            raise ValueError(f"{name}: expected (ll, ml, off)")
+        shape = tuple(rows[0].shape) if isinstance(
+            rows[0], torch.Tensor) and rows[0].dim() == 2 else (None, None)
+        if shape[0] is None or shape[0] < 1:
+            raise ValueError(f"{name}: expected int32 [rows >= 1, T]")
+        for k, t in zip("ll ml off".split(), rows):
+            check_operand(f"{name}.{k}", t, shape, dev)
+
+
+def execute_lanes(meta, src: LaneSources, S: int, O: int, window,
+                  win_start=None, W: int | None = None, out=None,
+                  out_start=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode every lane of a batch: meta int64 [N, 12] (the decode plane's
+    meta rows), `src` its sources, S the sequence rows' width, O the output
+    (and literal) width.  window uint8 [N, A] (contiguous rows, or one row
+    broadcast with stride 0): lane k's window is the W bytes (default A)
+    at ``clamp(win_start[k], 0, A - W)`` of its row (win_start int64 [N];
+    None: 0).  out: None for a new uint8 [N, O], or uint8 [N, A_o] whose
+    row k takes lane k's O bytes at ``clamp(out_start[k], 0, A_o - O)``
+    (out_start int64 [N]; None: 0) in place, bytes at or past out_len
+    zero; it may be the window tensor itself when each lane owns its row.
+    Returns (out, int32 [N] flags, ``lane_flags`` of the assembled
+    operands).  CPU tensors run ``lanes_plain``; CUDA tensors launch the
+    kernel once on the current stream.  Any other device, dtype, shape or
+    layout raises, and so does an O outside [1, MAX_O] on the card."""
+    if not isinstance(meta, torch.Tensor) or meta.dim() != 2:
+        raise ValueError(f"meta: expected an int64 tensor [N, {META_COLS}]")
+    dev = meta.device
+    N = meta.shape[0]
+    check_operand("meta", meta, (N, META_COLS), dev, torch.int64)
+    _check_sources(src, dev)
+    ws = _check_window(window, N, dev)
+    A = window.shape[1]
+    W = A if W is None else int(W)
+    if not 0 <= W <= A:
+        raise ValueError(f"W {W}: expected 0 to the window's {A}")
+    for name, t in (("win_start", win_start), ("out_start", out_start)):
+        if t is not None:
+            check_operand(name, t, (N,), dev, torch.int64)
+    if out is not None:
+        check_operand("out", out, (N, None), dev, torch.uint8)
+        if out.shape[1] < O:
+            raise ValueError(f"out: rows of {out.shape[1]} bytes, "
+                             f"expected at least O = {O}")
+    elif out_start is not None:
+        raise ValueError("out_start without out")
+    if dev.type == "cpu":
+        return lanes_plain(meta, src, S, O, window, win_start, W, out,
+                           out_start)
+    check_cuda(dev)
+    if not 0 < O <= MAX_O:
+        raise ValueError(f"O {O}: the kernel takes 1 to {MAX_O}")
+    if out is None:
+        out = torch.empty((N, O), dtype=torch.uint8, device=dev)
+    bad = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return out, bad
+    # written only by lanes that take the exact path (corrupt operands)
+    seg = torch.empty((N, 2, S + 1), dtype=torch.int64, device=dev)
+    code = torch.empty((N, O), dtype=torch.int32, device=dev)
+    search_rounds, jump_rounds = _rounds(S, O)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fse = src.fse or (None, None, None)
+    host = src.host or (None, None, None)
+    launch("lz_exec", dev, _build.load().zt_lz_decode, meta.data_ptr(), N,
+           src.raw.data_ptr(), src.raw.numel(), ptr(src.huf),
+           0 if src.huf is None else src.huf.numel(), src.huf_T,
+           *map(ptr, fse), 0 if src.fse is None else fse[0].shape[0],
+           0 if src.fse is None else fse[0].shape[1], *map(ptr, host),
+           0 if src.host is None else host[0].shape[0],
+           0 if src.host is None else host[0].shape[1],
+           window.data_ptr(), W, ws, A, ptr(win_start), out.data_ptr(), O,
+           out.shape[1], out.shape[1], ptr(out_start), S,
+           _stage_bytes(N, S, O, _sm_count(dev.index)), bad.data_ptr(),
+           seg.data_ptr(), code.data_ptr(), search_rounds, jump_rounds)
+    execute_lanes.launches += 1
+    return out, bad
+
+
+execute_lanes.launches = 0
