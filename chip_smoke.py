@@ -72,12 +72,24 @@ Phases, each printed on its own line:
      the wrapper, ``launcher_ms`` through the raw launcher and
      ``launch_floor_ms``, empty kernels of the same grid and cluster shape
      (``zt_histogram_floor``), on the literal rows;
+ 6b. lz_parse: the parse kernel (``csrc/lz_parse.cu``) against its plain
+     version (``lz_parse.parse_plain``), every output exactly, on every
+     call the encode plane makes to ``lz_parse.parse_lanes`` for the
+     encode workload and the coverage records (captured through
+     ``kernel_bench.capture_parse``: nine 16 KB chunks and one each of the
+     4, 64 and 128 KB buckets) and on ``graft_entry.entry``'s
+     ``parse_block_stats`` rows ([4, 32768], hash_log 15, (16, 24)
+     rounds); on the encode cell's first chunk its time through the
+     wrapper, the plain version's, the SM cycles of each pass on the
+     slowest lane (``kernel_bench.parse_passes``, also on the 128 KB
+     chunk), the serial floor (that lane alone) and the bound
+     (``kernel_bench.parse_work``);
   7. encode end to end: every frame decodes byte-exact with the host tier,
      the 256 records' frames decode byte-exact through the port's decode
      plane with none routed to the host, none of the 256 records is
      routed to the host encoder, the first 32-record chunk's frames equal
-     the port's CPU run byte for byte, and the histogram kernel was
-     launched;
+     the port's CPU run byte for byte, and the histogram and the parse
+     kernels were launched;
   8. encode timings (printed, not asserted): marginal GB/s, stage times,
      compressed bytes, and the host tier's level-1 compress on the same
      records;
@@ -97,10 +109,11 @@ Phases, each printed on its own line:
      prints GB/s and telemetry;
  11. records encode through ``compress_records_device`` on the 256 x 16 KB
      encode records: every frame decodes byte-exact with the host tier,
-     the frames equal ``compress_batch_device``'s, the histogram kernel
-     launched;
+     the frames equal ``compress_batch_device``'s, the histogram and the
+     parse kernels launched;
  12. ``zstdsharp_tpu_torch.graft_entry``: ``entry("cuda")`` equals
-     ``entry("cpu")`` and launched the histogram kernel, and
+     ``entry("cpu")`` and launched the histogram and the parse kernels,
+     and
      ``dryrun_multichip(1)`` completes on the card (its lines printed);
  13. dictionary decode of each set: bytes equal the records, the rows
      equal the port's CPU run and so does the host-routed count (0), each
@@ -129,7 +142,10 @@ Phases, each printed on its own line:
      ``decompress(..., n_workers=4)``; prints (not asserted) each call's
      time and the streams' MB/s;
  16. one decode of the decode cell under torch.profiler: its device
-     events and the LZ executor kernel's device ms; then one more level-1
+     events and the LZ executor kernel's device ms; one encode of the
+     encode cell: its device events (in all and a chunk), the device's
+     busy share and the parse kernel's launches and device ms; then one
+     more level-1
      stream compress of phase 9's input under torch.profiler: device
      events, the device's busy share (the union of their intervals over
      the call's wall time) and the time of the copies and sorts.  They
@@ -536,14 +552,16 @@ def _corrupt_phase(data, dev, card):
 
 def _kernel_wrappers():
     from zstdsharp_tpu_torch.ops import device_fse, device_huf, execseq
-    from zstdsharp_tpu_torch.ops import histogram
+    from zstdsharp_tpu_torch.ops import histogram, lz_parse
 
     return {"huf_decode": device_huf.decode_lanemajor,
             "fse_decode": device_fse.decode_lanemajor,
             "histogram": histogram.histogram_u8,
-            "lz_exec": execseq.execute_lanes}
+            "lz_exec": execseq.execute_lanes,
+            "lz_parse": lz_parse.parse_lanes}
 
 DECODE_KERNELS = ("huf_decode", "fse_decode", "lz_exec")
+ENCODE_KERNELS = ("histogram", "lz_parse")
 
 
 def _reset_counts():
@@ -630,9 +648,142 @@ def _hist_phase(lit_sorted, mask, odd, card):
             "launcher_ms": launcher_ms, "launch_floor_ms": floor_ms}
 
 
+def _parse_equal(call, name):
+    """The parse kernel against its plain version on one captured
+    ``parse_lanes`` call.  Returns (max_abs_err, the kernel's outputs)."""
+    import torch
+
+    from zstdsharp_tpu_torch.kernel_bench import run_parse
+    from zstdsharp_tpu_torch.ops import lz_parse as lp
+
+    got = run_parse(call)
+    torch.cuda.synchronize()
+    want = run_parse(call, lp.parse_plain)
+    _check(set(got) == set(want), f"{name}: the kernel's outputs")
+    err = 0.0
+    for k, w in want.items():
+        _check(got[k].shape == w.shape and got[k].dtype == w.dtype,
+               f"{name}: {k}'s shape and dtype")
+        if w.numel():
+            err = max(err, float((got[k].long() - w.long()).abs().max()))
+    _check(err == 0.0, f"{name}: the parse kernel equals its plain version")
+    return err, got
+
+
+def _lz_parse_phase(recs, extras, dev, card):
+    """Phase 6b: the parse kernel (``csrc/lz_parse.cu``) against its plain
+    version on every call the encode plane makes to ``parse_lanes`` for
+    the encode workload and the coverage records (captured through
+    ``kernel_bench.capture_parse``: the 16 KB chunks, the 4, 64 and 128 KB
+    buckets) and on ``graft_entry.entry``'s ``parse_block_stats`` rows;
+    then, on the encode cell's first chunk, the kernel's time through the
+    wrapper, the plain version's, the SM cycles of each pass
+    (``kernel_bench.parse_passes``), the serial floor (the lane whose
+    launch took longest, alone) and the bound (``kernel_bench.parse_work``).
+    Returns the kernel's JSON fields."""
+    from zstdsharp_tpu_torch import graft_entry
+    from zstdsharp_tpu_torch.encode.device_pipeline import (
+        compress_batch_device)
+    from zstdsharp_tpu_torch.kernel_bench import (bound, capture_parse,
+                                                  parse_lane, parse_passes,
+                                                  parse_work, run_parse,
+                                                  sm_clock_mhz)
+    from zstdsharp_tpu_torch.ops import lz_parse as lp
+
+    calls = capture_parse(lambda: compress_batch_device(recs + extras, dev))
+    widths = sorted({c["blocks"].shape[1] for c in calls})
+    _check(widths == [4 << 10, 16 << 10, 64 << 10, 128 << 10],
+           f"the encode plane parses every bucket {widths}")
+    fn, args = graft_entry.entry(dev)
+    stats = capture_parse(lambda: fn(*args))
+    _check(len(stats) == 1 and not stats[0]["compact"],
+           "parse_block_stats parses once")
+    err, shapes = 0.0, {}
+    for i, c in enumerate(calls + stats):
+        e, _ = _parse_equal(c, f"parse call {i}")
+        err = max(err, e)
+        key = (tuple(c["blocks"].shape), c["hash_log"], c["u64_rounds"],
+               c["stride_rounds"], c["compact"])
+        shapes[key] = shapes.get(key, 0) + 1
+    cell = next(c for c in calls if c["blocks"].shape[1] == ENC_REC_SIZE)
+    _, out = _parse_equal(cell, "the encode cell's first chunk")
+    ms = _gpu_ms(lambda: run_parse(cell), 20)
+    plain_ms = _gpu_ms(lambda: run_parse(cell, lp.parse_plain), 3)
+    big = next(c for c in calls if c["blocks"].shape[1] == 128 << 10)
+    passes = {"16KB": parse_passes(cell), "128KB": parse_passes(big)}
+    mhz = sm_clock_mhz()
+    slowest = passes["16KB"]["lane"]
+    one = parse_lane(cell, slowest)
+    _parse_equal(one, "the slowest lane alone")
+    floor_ms = _gpu_ms(lambda: run_parse(one), 20)
+    big_ms = _gpu_ms(lambda: run_parse(big), 5)
+    stats_ms = _gpu_ms(lambda: run_parse(stats[0]), 20)
+    bound_ms, bound_by = bound(*parse_work(cell, out))
+    n_slow = int(out["nseq"][slowest])
+    print(f"phase lz_parse: kernel == plain on {len(calls)} encode-plane "
+          f"calls and parse_block_stats's rows (calls by (shape, hash_log, "
+          f"rounds, compact): {shapes}; max_abs_err {err}); encode cell's "
+          f"first chunk {tuple(cell['blocks'].shape)}: kernel {ms:.4f} ms "
+          f"through the wrapper, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); serial floor: the slowest lane "
+          f"(by its clock stamps; {n_slow} sequences) alone {floor_ms:.4f} "
+          f"ms; 128 KB chunk "
+          f"{big_ms:.4f} ms; parse_block_stats rows [4, 32768] at hash_log "
+          f"15, (16, 24) rounds {stats_ms:.4f} ms; no single PyTorch call "
+          f"computes it (CUDA events) on {card}")
+    print(f"phase lz_parse passes: SM cycles by pass on the slowest lane "
+          f"and the most of any lane, 16 KB and 128 KB chunks: {passes}; "
+          f"SM clock {mhz} MHz now on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "serial_floor_ms": floor_ms, "chunk_128KB_ms": big_ms,
+            "passes_cycles": passes, "sm_clock_mhz": mhz}
+
+
+def _encode_profile_phase(recs, dev, card):
+    """Phase 16, second part: one encode of the encode cell under
+    torch.profiler: device events (a chunk and in all), the device's busy
+    share (the union of their intervals over the call's wall time) and the
+    parse kernel's launches and device ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zstdsharp_tpu_torch.encode.device_pipeline import (
+        LANES, compress_batch_device)
+
+    compress_batch_device(recs, dev)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        compress_batch_device(recs, dev)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _check(events, "the profiler recorded device events")
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy += max(hi - lo, 0.0)
+        end = max(end, hi)
+    parse = [e for e in events if "parse_kernel" in e.name]
+    _check(parse, "the profiler saw the parse kernel")
+    parse_ms = sum(e.time_range.elapsed_us() for e in parse) / 1e3
+    chunks = -(-len(recs) // LANES)
+    print(f"phase encode profile: one encode of the {len(recs)} records "
+          f"({chunks} chunks): wall {wall:.1f} ms (profiled), "
+          f"{len(events)} device events ({len(events) / chunks:.0f} a "
+          f"chunk), device busy {busy / 1e3:.3f} ms (share "
+          f"{busy / 1e3 / wall:.4f}); the lz_parse kernel {len(parse)} "
+          f"launches, {parse_ms:.4f} ms of device time on {card}")
+    return {"encode_events": len(events), "encode_busy_share":
+            busy / 1e3 / wall, "encode_device_ms": parse_ms}
+
+
 def _encode_phases(data, dev, card):
-    """Phases 6-8.  Returns (the histogram kernel's JSON fields, its
-    launches in the encode path)."""
+    """Phases 6-8.  Returns (the histogram's and the parse kernel's JSON
+    fields, their launches in the encode path)."""
     import numpy as np
     import torch
 
@@ -660,14 +811,17 @@ def _encode_phases(data, dev, card):
     odd = torch.from_numpy(np.frombuffer(data[:(4 << 20) + 1], np.uint8)
                            .copy()).to(dev)
     hist = _hist_phase(lit_sorted, mask, odd, card)
+    lzp = _lz_parse_phase(recs, extras, dev, card)
 
     # ---- the encode path, once, through the user entry point ----
     all_in = recs + extras
     _reset_counts()
     chunks, host = compress_batch_device(all_in, dev)
     torch.cuda.synchronize()
-    launches = _counts()["histogram"]
-    _check(launches > 0, f"histogram kernel launched ({launches})")
+    counts = _counts()
+    launches = {k: counts[k] for k in ENCODE_KERNELS}
+    _check(all(v > 0 for v in launches.values()),
+           f"encode kernels launched ({launches})")
     _check(all(r.device == dev and ln.device == dev for _, r, ln in chunks),
            "frame rows stay on the card")
     frames = [None] * len(all_in)
@@ -699,7 +853,7 @@ def _encode_phases(data, dev, card):
           f"(host tier); {N_RECORDS} record frames byte-exact through "
           f"unwrap_many_device, decode host-routed {len(dhost)}; host-encoded "
           f"{sorted(host)} (records: 0); first {LANES} frames == CPU port; "
-          f"histogram launches {launches}; records {sum(map(len, recs))} B "
+          f"launches {launches}; records {sum(map(len, recs))} B "
           f"-> {csize} B")
 
     # ---- timings ----
@@ -727,7 +881,7 @@ def _encode_phases(data, dev, card):
           f"compressed {csize} B; host compress L1 "
           f"{payload / host_s / 1e9:.4f} GB/s ({host_s * 1e3:.2f} ms) -> "
           f"{host_size} B on {card}")
-    return hist, launches
+    return hist, lzp, launches
 
 
 def _compress_phase(big, data, mesh, dev, card):
@@ -900,7 +1054,8 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
     eframes = pp.compress_records_device(enc_recs, mesh, telemetry=tel)
     torch.cuda.synchronize()
     counts = _counts()
-    _check(counts["histogram"] > 0, f"histogram launched {counts}")
+    _check(all(counts[k] > 0 for k in ENCODE_KERNELS),
+           f"encode kernels launched {counts}")
     for k, v in counts.items():
         launches[k] += v
     _check([decompress(f) for f in eframes] == enc_recs,
@@ -922,7 +1077,8 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
     torch.cuda.synchronize()
     counts = _counts()
     _check(all(a.device == dev for a in args), "entry() arguments on card")
-    _check(counts["histogram"] > 0, f"entry() launched histogram {counts}")
+    _check(all(counts[k] > 0 for k in ENCODE_KERNELS),
+           f"entry() launched the histogram and the parse {counts}")
     c_fn, c_args = graft_entry.entry("cpu")
     want = c_fn(*c_args)
     _check(set(got) == set(want) and all(
@@ -1309,8 +1465,8 @@ def main() -> int:
           f"off {payload / ctypes_s / 1e9:.4f} GB/s ({ctypes_s * 1e3:.2f} "
           f"ms), medians of 5 on {card}")
 
-    hist, hist_launches = _encode_phases(data, dev, card)
-    launches["histogram"] = hist_launches
+    hist, lzp, enc_launches = _encode_phases(data, dev, card)
+    launches.update(enc_launches)
     dp_launches = _stream_phases(big, data, recs, frames,
                                  _encode_workload(data)[0], dev, card)
     launches = {k: launches[k] + dp_launches[k] for k in launches}
@@ -1320,6 +1476,7 @@ def main() -> int:
     for k, v in _api_phase(recs, data, card).items():
         launches[k] += v
     lz.update(_decode_profile_phase(frames, dev, card))
+    lzp.update(_encode_profile_phase(_encode_workload(data)[0], dev, card))
     _stream_profile(big, dev, card)
 
     kernels = [{"name": name, "route": "cuda",
@@ -1330,7 +1487,8 @@ def main() -> int:
                    ("huf_decode", huf, "huf_decode.cu", "device_huf.py:238"),
                    ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
                    ("histogram", hist, "histogram.cu", "histogram.py:36"),
-                   ("lz_exec", lz, "lz_exec.cu", "execseq.py:41"))]
+                   ("lz_exec", lz, "lz_exec.cu", "execseq.py:41"),
+                   ("lz_parse", lzp, "lz_parse.cu", "device_encode.py:421"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,13 +22,17 @@ from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor, decompress
 from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.encode.frame import compress
-from zstdsharp_tpu_torch.kernel_bench import (capture_exec, exec_args,
-                                             lz_corrupt, lz_corrupt_lanes,
-                                             run_lanes)
+from zstdsharp_tpu_torch.graft_entry import entry
+from zstdsharp_tpu_torch.kernel_bench import (capture_exec, capture_parse,
+                                             exec_args, lz_corrupt,
+                                             lz_corrupt_lanes, parse_rows,
+                                             run_lanes, run_parse)
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
 from zstdsharp_tpu_torch.ops import execseq as ex
+from zstdsharp_tpu_torch.ops import device_encode as de
 from zstdsharp_tpu_torch.ops import histogram as hg
+from zstdsharp_tpu_torch.ops import lz_parse as lp
 from zstdsharp_tpu_torch.ops.matcher import candidate_stage
 from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
                                                    compress_records_device,
@@ -850,6 +854,121 @@ def test_encode_on_card_equals_cpu(cuda):
     assert [decompress(f) for f in frames] == recs
     results, _ = dp.decode_batch_device(frames[:43], cuda, materialize=True)
     assert results == recs[:43]
+
+
+def _parse_equal(blocks, nv, S, hash_log, rounds, compact):
+    """parse_lanes (one launch) against parse_plain on the same CUDA
+    tensors: every output, exactly.  Returns the kernel's outputs."""
+    before = lp.parse_lanes.launches
+    got = lp.parse_lanes(blocks, nv, S, hash_log, *rounds, compact=compact)
+    torch.cuda.synchronize()
+    assert lp.parse_lanes.launches == before + 1
+    want = lp.parse_plain(blocks, nv, S, hash_log, *rounds, compact=compact)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert torch.equal(got[k], w), k
+    return got
+
+
+def _parse_operands(n, seed, cuda):
+    """parse_rows' 15 cases and 17 rows of the corpus: one 32-lane chunk."""
+    blocks, nv = parse_rows(seed, n)
+    corpus = np.frombuffer(_corpus(17 * n), np.uint8).reshape(17, n)
+    blocks = np.concatenate([blocks, corpus])
+    nv = np.concatenate([nv, np.full(17, n, np.int32)])
+    return torch.from_numpy(blocks).to(cuda), torch.from_numpy(nv).to(cuda)
+
+
+@pytest.mark.parametrize("n", [1 << 12, 1 << 14, 1 << 16, 1 << 17])
+def test_lz_parse_buckets_equal_plain(cuda, n):
+    blocks, nv = _parse_operands(n, n, cuda)
+    got = _parse_equal(blocks, nv, de.seq_budget(n), 15, (8, 8), True)
+    assert int(got["nseq"].max()) > 100
+    assert bool((got["mls"] == 640).any())  # capped, chained sequences
+
+
+@pytest.mark.parametrize("hash_log,rounds,compact", [
+    (15, (16, 24), False), (16, (16, 24), False), (16, (8, 8), True),
+    (10, (8, 8), True), (1, (8, 8), True), (15, (2, 0), True)],
+    ids=["15_16_24", "16_16_24", "16_compact", "collisions", "one_bit",
+         "no_stride"])
+def test_lz_parse_tables_and_rounds_equal_plain(cuda, hash_log, rounds,
+                                               compact):
+    n = 1 << 15
+    blocks, nv = _parse_operands(n, hash_log, cuda)
+    _parse_equal(blocks, nv, n // 8, hash_log, rounds, compact)
+
+
+@pytest.mark.parametrize("S", [1, 16, 200])
+def test_lz_parse_sequence_cap_equals_plain(cuda, S):
+    blocks, nv = _parse_operands(1 << 14, S, cuda)
+    got = _parse_equal(blocks, nv, S, 15, (8, 8), True)
+    assert int(got["nseq"].max()) == S
+
+
+def test_lz_parse_odd_width_and_n_valid_equal_plain(cuda):
+    blocks, _ = parse_rows(5, 1000)
+    nv = np.array([1000, 1050, -3, 517, 4, 0] + [999] * 9, np.int32)
+    _parse_equal(torch.from_numpy(blocks).to(cuda),
+                 torch.from_numpy(nv).to(cuda), 300, 13, (8, 8), True)
+
+
+def test_lz_parse_is_deterministic(cuda):
+    blocks, nv = _parse_operands(1 << 14, 3, cuda)
+    a = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True)
+    b = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_lz_parse_stamps_each_pass(cuda):
+    """parse_lanes(stamps=) writes each row's SM clock after each pass, in
+    order, and changes no output."""
+    blocks, nv = _parse_operands(1 << 14, 6, cuda)
+    stamps = torch.zeros(blocks.shape[0], 6, dtype=torch.int64, device=cuda)
+    a = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True,
+                       stamps=stamps)
+    b = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert bool((stamps[:, 1:] >= stamps[:, :-1]).all())
+    assert bool((stamps[:, 5] > stamps[:, 0]).all())
+
+
+def test_lz_parse_raises_off_the_card_and_on_bad_shapes(cuda):
+    blocks, nv = _parse_operands(1 << 12, 4, cuda)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        lp.parse_lanes(blocks.cpu(), nv.cpu(), 64, 15, 8, 8, compact=True)
+    big = torch.zeros(2, lp.MAX_N + 1, dtype=torch.uint8, device=cuda)
+    for args in ((big, nv[:2], 64, 15), (blocks[0], nv, 64, 15),
+                 (blocks, nv[:3], 64, 15), (blocks, nv, 0, 15),
+                 (blocks, nv, 64, lp.MAX_HASH_LOG + 1),
+                 (blocks[:, ::2], nv, 64, 15)):
+        with pytest.raises(ValueError):
+            lp.parse_lanes(*args, 8, 8, compact=True)
+    with pytest.raises(TypeError):
+        lp.parse_lanes(blocks.to(torch.int32), nv, 64, 15, 8, 8,
+                       compact=True)
+
+
+def test_encode_and_entry_parse_through_the_kernel(cuda):
+    """The encode plane and parse_block_stats launch the kernel, one
+    launch a chunk, and each captured call equals the plain version."""
+    recs = _records(40, 3_000, 81) + [b"ab" * 9000]
+    calls = capture_parse(lambda: compress_batch_device(recs, cuda))
+    assert [c["blocks"].shape for c in calls] == [(32, 4096), (32, 4096),
+                                                  (32, 65536)]
+    fn, args = entry(cuda)
+    calls += capture_parse(lambda: fn(*args))
+    assert calls[-1]["hash_log"] == 15 and not calls[-1]["compact"]
+    for c in calls:
+        got = run_parse(c)
+        want = run_parse(c, lp.parse_plain)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    c_fn, c_args = entry("cpu")
+    got, want = fn(*args), c_fn(*c_args)
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
 
 
 @pytest.mark.parametrize("n", [1 << 16, 1 << 17])

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("huf_decode.cu", "fse_decode.cu", "histogram.cu", "lz_exec.cu")
+SOURCES = ("huf_decode.cu", "fse_decode.cu", "histogram.cu", "lz_exec.cu",
+           "lz_parse.cu")
 LIB_PATH = BUILD_DIR / "libzt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -133,5 +134,7 @@ def load() -> ctypes.CDLL:
         lib.zt_lz_decode.argtypes = [p, q, p, q, p, q, q, p, p, p, q, q, p, p,
                                      p, q, q, p, q, q, q, p, p, q, q, q, p, q,
                                      q, p, p, p, i, i, p]
+        lib.zt_lz_parse.restype = i
+        lib.zt_lz_parse.argtypes = [p, p, i, i, i, i, i, i] + [p] * 15
         _lib = lib
         return lib

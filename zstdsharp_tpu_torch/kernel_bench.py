@@ -4,6 +4,8 @@ held to.
     python -m zstdsharp_tpu_torch.kernel_bench [--hist-baseline FILE.cu]
                                                [--huf-baseline FILE.cu]
                                                [--fse-baseline FILE.cu]
+                                               [--parse-baseline FILE.cu]
+                                               [--parse-only]
                                                [--out FILE.json]
 
 1. The histogram kernel (``csrc/histogram.cu``) on every shape the main
@@ -43,7 +45,19 @@ held to.
 ``capture_exec``, ``run_lanes``, ``exec_args``, ``lz_work``,
 ``lz_corrupt`` and ``lz_corrupt_lanes`` serve the LZ executor kernel
 (``csrc/lz_exec.cu``), which chip_smoke.py and the card tests check and
-time on the calls the decode plane makes.
+time on the calls the decode plane makes; ``capture_parse``,
+``run_parse``, ``parse_lane``, ``parse_passes``, ``parse_work`` and
+``parse_rows`` serve the encode plane's parse kernel
+(``csrc/lz_parse.cu``) the same way.
+
+3. The parse kernel (``csrc/lz_parse.cu``) on the main path's calls of
+   ``lz_parse.parse_lanes`` (``parse_windows``: the encode cell's first
+   chunk [32, 16384], the 128 KB bucket's chunk and the 16 KB chunk's
+   slowest lane alone), and each ``--parse-baseline``
+   (another source of ``zt_lz_parse``): every source built alone,
+   checked against the plain version and timed in turns (CUDA events
+   through the raw launcher), with the SM cycles of each pass on the
+   slowest lane.  ``--parse-only`` runs this part alone.
 
 Prints what ``nvcc -Xptxas -v`` reports for each source built alone.
 Every time is printed beside the card's name and power limit, and the
@@ -65,7 +79,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops import device_fse, device_huf, execseq
+from .ops import device_fse, device_huf, execseq, lz_parse
 
 ROOT = Path(__file__).resolve().parent.parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -319,6 +333,163 @@ def lz_corrupt_lanes(rng, N: int, S: int, O: int, W: int, dev,
 # ---------------------------------------------------------------------------
 
 
+def capture_parse(run) -> list:
+    """Call ``run()`` with ``lz_parse.parse_lanes`` recording each call: a
+    dict of its arguments (blocks and n_valid as copies taken before the
+    call, S, hash_log, u64_rounds, stride_rounds, compact)."""
+    calls, real = [], lz_parse.parse_lanes
+
+    def spy(blocks, n_valid, S, hash_log, u64_rounds, stride_rounds, *,
+            compact, stamps=None):
+        calls.append({"blocks": blocks.clone(), "n_valid": n_valid.clone(),
+                      "S": S, "hash_log": hash_log, "u64_rounds": u64_rounds,
+                      "stride_rounds": stride_rounds, "compact": compact})
+        return real(blocks, n_valid, S, hash_log, u64_rounds, stride_rounds,
+                    compact=compact, stamps=stamps)
+
+    # the wrapper counts its launches on the module's parse_lanes, the spy
+    # while it stands in
+    spy.launches = real.launches
+    lz_parse.parse_lanes = spy
+    try:
+        run()
+    finally:
+        lz_parse.parse_lanes = real
+        real.launches = spy.launches
+    return calls
+
+
+def run_parse(call, fn=None) -> dict:
+    """`fn` (default ``lz_parse.parse_lanes``; ``lz_parse.parse_plain`` for
+    the plain version) on a ``capture_parse`` record."""
+    fn = lz_parse.parse_lanes if fn is None else fn
+    c = dict(call)
+    return fn(c.pop("blocks"), c.pop("n_valid"), c.pop("S"),
+              c.pop("hash_log"), c.pop("u64_rounds"), c.pop("stride_rounds"),
+              **c)
+
+
+def parse_lane(call, lane: int) -> dict:
+    """Lane `lane` of a ``capture_parse`` record alone (the serial floor
+    of the slowest lane: the kernel's time is then that lane's passes)."""
+    c = dict(call)
+    c["blocks"] = call["blocks"][lane:lane + 1].contiguous()
+    c["n_valid"] = call["n_valid"][lane:lane + 1].contiguous()
+    return c
+
+
+PARSE_PASSES = ("v32", "previous_occurrence", "match_lengths", "walk",
+                "outputs")
+
+
+def parse_passes(call) -> dict:
+    """The SM cycles each pass of the parse kernel takes on a
+    ``capture_parse`` record (clock64 stamps of thread 0 after each pass's
+    barrier, ``parse_lanes(stamps=)``, after one warm-up launch): on the
+    lane whose launch took longest ("lane", its cycles by pass) and the
+    most any lane took in each pass ("max").  The passes are
+    ``PARSE_PASSES``: v32 and the cleared table, the previous-occurrence
+    walk, the match extension, the greedy walk, and the outputs (offsets,
+    covered, the literal permutation, the histograms)."""
+    blocks = call["blocks"]
+    stamps = torch.zeros(blocks.shape[0], 6, dtype=torch.int64,
+                         device=blocks.device)
+    run_parse(call)
+    run_parse(call, lambda *a, **k: lz_parse.parse_lanes(*a, **k,
+                                                         stamps=stamps))
+    d = (stamps[:, 1:] - stamps[:, :-1]).cpu()
+    lane = int((stamps[:, 5] - stamps[:, 0]).argmax())
+    return {"lane": lane,
+            "lane_cycles": dict(zip(PARSE_PASSES, d[lane].tolist())),
+            "max_cycles": dict(zip(PARSE_PASSES, d.max(0).values.tolist()))}
+
+
+def sm_clock_mhz() -> int:
+    """The SM clock nvidia-smi reads now (MHz), to turn cycles into
+    time."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits", "-i", "0"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr}")
+    return int(r.stdout.strip())
+
+
+def parse_work(call, out: dict) -> tuple[int, int]:
+    """(bytes, operations) of one ``lz_parse.parse_lanes`` call (a
+    ``capture_parse`` record) and its outputs `out`: each row's N bytes
+    and its n_valid read once; covered (N bytes), starts/mls/offs (12 bytes
+    a sequence slot) and nseq written, with ``compact`` also lit_sorted (N
+    bytes), lit_count and the 121 code-histogram counts.  Operations, as
+    this data needs them: about 20 a position that may start a match (its
+    u32, hash, table step, candidate check, bitmask bit and place in the
+    permutation), 10 a u32 compare of the extension rounds of each
+    candidate that passes the 4-byte check -- counted as the match length
+    over 4 plus 2 -- and 30 a selected sequence (the walk, the offset, the
+    covered bits, the codes)."""
+    blocks = call["blocks"]
+    B, N = blocks.shape
+    S = call["S"]
+    n_bytes = 2 * B * N + 4 * B + 12 * B * S + 4 * B
+    if call["compact"]:
+        n_bytes += B * N + 4 * B + 4 * B * sum(b for _, b in
+                                                lz_parse.HIST_BINS)
+    nv = call["n_valid"].long()
+    cnt = int((nv - 3).clamp(0, N).sum())
+    nseq = out["nseq"].long()
+    live = torch.arange(S, device=blocks.device)[None, :] < nseq[:, None]
+    matched = int(torch.where(live, out["mls"].long(), 0).sum())
+    ops = 20 * cnt + 10 * (matched // 4 + 2 * int(nseq.sum())) \
+        + 30 * int(nseq.sum())
+    return n_bytes, ops
+
+
+def parse_rows(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded rows of width n for the parse and their n_valid: text,
+    noise, a byte run and ``b"ab"`` runs, the n_valid edges 0, 3, n - 1
+    and n, repeats of 639, 640, 641 and 700 bytes (the (8, 8) rounds
+    extend at most 640), a match that runs into n, one clipped by n_valid
+    with the match going on past it, and one offset repeated with and
+    without literals between (rep0)."""
+    rng = np.random.default_rng(seed)
+    words = [b"alpha ", b"bravo ", b"charlie ", b"delta ", b"echo ",
+             b"foxtrot ", b"golf ", b"hotel "]
+    rows, nvs = [], []
+
+    def text(k):
+        return b"".join(words[i] for i in rng.integers(0, 8, k // 5 + 2))[:k]
+
+    def noise(k):
+        return bytes(rng.integers(0, 256, k, dtype=np.uint8))
+
+    def add(data, nv=None, fill=b""):
+        r = np.zeros(n, np.uint8)
+        body = (data + fill)[:n]
+        r[:len(body)] = np.frombuffer(body, np.uint8)
+        rows.append(r)
+        nvs.append(min(len(data), n) if nv is None else nv)
+
+    add(text(n))
+    add(noise(n))
+    add(b"Q" * (n // 2) + text(n // 2))
+    add(b"ab" * n)
+    for nv in (0, 3, n - 1, n):
+        add(text(n), nv)
+    for run in (639, 640, 641, 700):
+        x = noise(run)
+        add(noise(17) + x + x + text(n))
+    x = noise(n // 2 - 5)
+    add(noise(10) + x + x)                         # the match reaches n
+    x = noise(300)
+    add(noise(20) + x + x[:150], None, x[150:] + noise(n))  # clipped by nv
+    x = bytearray(noise(900))
+    y = bytearray(x)
+    for k in range(40, 900, 60):
+        y[k] ^= 0x5A                               # one literal, same offset
+    add(noise(5) + bytes(x) + bytes(y) + bytes(x) * 3)
+    return np.stack(rows), np.array(nvs, np.int32)
+
+
 def card() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader", "-i", "0"],
@@ -387,8 +558,8 @@ def device_ms(fn, reps: int = 20, names=None) -> float:
 
 def _build_variant(src: Path, out: Path) -> tuple[ctypes.CDLL, list]:
     """nvcc `src` alone into `out`; returns the library (its
-    ``zt_fse_decode`` or ``zt_huf_decode`` declared, whichever it has)
-    and the ptxas lines of its log."""
+    ``zt_fse_decode``, ``zt_huf_decode`` or ``zt_lz_parse`` declared,
+    whichever it has) and the ptxas lines of its log."""
     from . import _build
 
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -404,6 +575,9 @@ def _build_variant(src: Path, out: Path) -> tuple[ctypes.CDLL, list]:
             getattr(lib, name).restype = i
             getattr(lib, name).argtypes = [p, i, p, p, p, p, p, p, p, p, i, i,
                                            p]
+    if hasattr(lib, "zt_lz_parse"):
+        lib.zt_lz_parse.restype = i
+        lib.zt_lz_parse.argtypes = [p, p, i, i, i, i, i, i] + [p] * 15
     return lib, [ln.strip() for ln in log.splitlines()
                  if "ptxas" in ln or "spill" in ln]
 
@@ -754,6 +928,82 @@ def hist_ab(data: bytes, dev, others: list) -> dict:
     return res
 
 
+def parse_launcher(lib, call, stamps=None):
+    """A call of `lib`'s ``zt_lz_parse`` on a ``capture_parse`` record
+    into preallocated outputs, the arguments ``lz_parse.parse_lanes``
+    passes: (run, the outputs as ``parse_lanes`` returns them)."""
+    out, args, keep = lz_parse.launch_args(
+        call["blocks"], call["n_valid"], call["S"], call["hash_log"],
+        call["u64_rounds"], call["stride_rounds"], call["compact"], stamps)
+    stream = torch.cuda.current_stream(call["blocks"].device).cuda_stream
+
+    def run():
+        rc = lib.zt_lz_parse(*args, stream)
+        if rc:
+            raise RuntimeError(f"zt_lz_parse: cudaError_t {rc}")
+    run.keep = keep
+    return run, out
+
+
+def parse_windows(data: bytes, dev) -> dict:
+    """The parse kernel's main-path calls: the encode cell's first chunk
+    (32 records of 16 KB of `data`), the 128 KB bucket's chunk (32
+    records of 128 KB) and the 16 KB chunk's slowest lane (by its clock
+    stamps) alone, as ``capture_parse`` records."""
+    from .encode.device_pipeline import compress_batch_device
+
+    recs = [data[i:i + (16 << 10)] for i in range(0, 32 << 14, 16 << 10)]
+    big = [data[i:i + (128 << 10)] for i in range(0, 32 << 17, 128 << 10)]
+    calls = capture_parse(lambda: compress_batch_device(recs + big, dev))
+    lane = parse_passes(calls[0])["lane"]
+    return {"chunk_16KB": calls[0], "chunk_128KB": calls[1],
+            "slowest_lane_16KB": parse_lane(calls[0], lane)}
+
+
+def parse_ab(data: bytes, dev, others: list) -> dict:
+    """csrc/lz_parse.cu and `others` ((name, source) pairs of the same
+    entry point), each built alone, checked against the plain version on
+    each of ``parse_windows`` and timed in turns (the others, the kernel
+    twice, the others in reverse): CUDA events over 20 calls of the raw
+    launcher, and the SM cycles of each pass on the slowest lane (clock64
+    stamps)."""
+    libs, ptxas = _build_all("lz_parse", others)
+    res = {"windows": {}, "ptxas": ptxas}
+    order = [n for n, _ in others]
+    turns = order + ["kernel", "kernel"] + order[::-1]
+    for wname, call in parse_windows(data, dev).items():
+        want = run_parse(call, lz_parse.parse_plain)
+        row = {"shape": list(call["blocks"].shape),
+               "nseq_max": int(want["nseq"].max())}
+        runs, stamps = {}, {}
+        for name, lib in libs.items():
+            st = torch.zeros(call["blocks"].shape[0], 6, dtype=torch.int64,
+                             device=dev)
+            run, outs = parse_launcher(lib, call)
+            run()
+            srun, _ = parse_launcher(lib, call, st)
+            srun()
+            torch.cuda.synchronize()
+            if not all(torch.equal(outs[k], want[k]) for k in want):
+                raise RuntimeError(f"lz_parse {wname}: {name} differs from "
+                                   "plain")
+            runs[name] = run
+            d = (st[:, 1:] - st[:, :-1]).cpu()
+            lane = int((st[:, 5] - st[:, 0]).argmax())
+            stamps[name] = dict(zip(PARSE_PASSES, d[lane].tolist()))
+        for name in turns:
+            row.setdefault(f"{name}_ms", []).append(event_ms(runs[name], 20))
+        row["slowest_lane_cycles"] = stamps
+        row["bound_ms"], row["bound_by"] = bound(*parse_work(call, want))
+        res["windows"][wname] = row
+        times = "; ".join(f"{n} ms {row[n + '_ms']}" for n in libs)
+        print(f"lz_parse {wname} {row['shape']}: all equal plain; {times}; "
+              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
+              f"slowest lane's cycles by pass {stamps}")
+    res["sm_clock_mhz"] = sm_clock_mhz()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     for k, entry, src in (("huf", "zt_huf_decode", "huf_decode.cu"),
@@ -763,6 +1013,12 @@ def main(argv=None) -> int:
                         default=[], metavar="FILE.cu",
                         help=f"another source of {entry} to build and "
                              f"time beside csrc/{src} (repeatable)")
+    ap.add_argument("--parse-baseline", type=Path, action="append",
+                    default=[], metavar="FILE.cu",
+                    help="another source of zt_lz_parse to build and time "
+                         "beside csrc/lz_parse.cu (repeatable)")
+    ap.add_argument("--parse-only", action="store_true",
+                    help="run the parse kernel's A/B alone")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_bench.json",
                     help="where to write the JSON result")
@@ -778,12 +1034,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     data = make_corpus(2 * N_RECORDS * REC_SIZE)
     out = {"card": name,
-           "histogram": hist_ab(data, dev, [(f.stem, f)
-                                            for f in args.hist_baseline])}
-    windows = decode_windows(data, dev)
-    for k, files in (("huf", args.huf_baseline), ("fse", args.fse_baseline)):
-        out[k] = kernel_ab(f"{k}_decode", windows[f"{k}_decode"],
-                           [(f.stem, f) for f in files])
+           "lz_parse": parse_ab(data, dev, [(f.stem, f)
+                                            for f in args.parse_baseline])}
+    if not args.parse_only:
+        out["histogram"] = hist_ab(data, dev, [(f.stem, f)
+                                               for f in args.hist_baseline])
+        windows = decode_windows(data, dev)
+        for k, files in (("huf", args.huf_baseline),
+                         ("fse", args.fse_baseline)):
+            out[k] = kernel_ab(f"{k}_decode", windows[f"{k}_decode"],
+                               [(f.stem, f) for f in files])
     out["seconds"] = time.perf_counter() - t0
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))

@@ -4,10 +4,12 @@ zstdsharp_tpu/ops/device_encode.py).
 
 Three phases per batch of B padded records ``[B, N]``, as the reference:
 
-1. parse (device): ``matcher.parse_blocks_ptrjump``, literal compaction by
-   one sort per row, the literal byte histogram through
-   ``histogram.histogram_u8`` (the CUDA kernel on a GPU) and the 36/32/53
-   bin sequence-code histograms (plain torch);
+1. parse (device): the greedy parse, the literal compaction and the
+   36/32/53 bin sequence-code histograms, on a GPU in one launch of the
+   ``csrc/lz_parse.cu`` kernel (``lz_parse.parse_lanes``) and on the CPU
+   in its plain torch version (``lz_parse.parse_plain``), then the literal
+   byte histogram through ``histogram.histogram_u8`` (the
+   ``csrc/histogram.cu`` kernel on a GPU, plain torch on the CPU);
 2. tables (host): one copy of every count to the host -- the batch's only
    host synchronisation -- then the reference's numpy table builders
    (canonical Huffman literal tables, fresh/RLE/predefined FSE tables at
@@ -41,7 +43,7 @@ from ..entropy import fse, huffman
 
 from .common import U32, highbit, pack_bits_device
 from .histogram import histogram_u8
-from .matcher import parse_blocks_ptrjump
+from . import lz_parse
 
 MINMATCH = 3  # format minimum (the parse emits >= 4)
 
@@ -263,29 +265,18 @@ def _fse_stream_states(codes, nseq, stream, tables=None):
 def _parse_phase(blocks, n_valid, S: int, hash_log: int):
     """Greedy parse + literal compaction + literal and code histograms.
     Returns (parsed, lit_sorted uint8 [B, N], lit_count int32 [B],
-    lit_hist int32 [B, 256], (ll [B, 36], of [B, 32], ml [B, 53]) int32)."""
-    B, N = blocks.shape
-    dev = blocks.device
-    nv = n_valid.to(torch.int64)
-    parsed = parse_blocks_ptrjump(blocks, nv, hash_log, S, 8, 8)
-
-    # literals first, in position order: one sort on unique keys per row
-    idx = torch.arange(N, device=dev)
-    drop = parsed["covered"] | (idx >= nv[:, None])
-    key = drop.to(torch.int64) * N + idx
-    lit_sorted = torch.gather(blocks, 1, torch.sort(key, dim=1).indices)
-    i = torch.arange(S, device=dev)
-    real_mls = torch.where(i < parsed["nseq"].to(torch.int64)[:, None],
-                           parsed["mls"].to(torch.int64), 0)
-    lit_count = nv - real_mls.sum(1)
-    lit_hist = histogram_u8(lit_sorted, mask=idx < lit_count[:, None])
-
-    real, ll, mlv, ofb = _seq_values(parsed["starts"], parsed["mls"],
-                                     parsed["offs"], parsed["nseq"])
-    llc, mlc, ofc = _codes_from_values(ll, mlv, ofb, _dev_consts(dev))
-    hists = (_code_hist(llc, real, 36), _code_hist(ofc, real, 32),
-             _code_hist(mlc, real, 53))
-    return parsed, lit_sorted, lit_count.to(torch.int32), lit_hist, hists
+    lit_hist int32 [B, 256], (ll [B, 36], of [B, 32], ml [B, 53]) int32).
+    On a card everything but the literal histogram is one launch of the
+    ``csrc/lz_parse.cu`` kernel (``lz_parse.parse_lanes``); on the CPU its
+    plain torch version (``lz_parse.parse_plain``)."""
+    out = lz_parse.parse(blocks, n_valid, S, hash_log, 8, 8, compact=True)
+    parsed = {k: out[k] for k in lz_parse.PARSE_KEYS}
+    lit_sorted, lit_count = out["lit_sorted"], out["lit_count"]
+    idx = torch.arange(blocks.shape[1], device=blocks.device)
+    lit_hist = histogram_u8(lit_sorted,
+                            mask=idx < lit_count.to(torch.int64)[:, None])
+    hists = tuple(out[name] for name, _ in lz_parse.HIST_BINS)
+    return parsed, lit_sorted, lit_count, lit_hist, hists
 
 
 # ---------------------------------------------------------------------------

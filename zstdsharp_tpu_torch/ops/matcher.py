@@ -7,22 +7,21 @@ forward step (``parse_block_stats``).
 
 Every row of a ``[B, N]`` batch is parsed independently (window reset at
 the row start), where the reference works on one ``[N]`` row and is
-vmapped: hash every position, previous-occurrence candidates by one
-stable sort, vectorised match lengths, then the cursor walk "next match at
-or after pos, jump past it" as the orbit of cursor 0 under the jump map,
-marked by pointer doubling.  Plain torch on whatever device the rows are
-on; it issues no host synchronisation.
+vmapped.  The parse runs where the rows are: on a card as one launch of
+the ``csrc/lz_parse.cu`` kernel for all rows, on the CPU as its plain
+torch version (both in ``ops/lz_parse.py``).  ``candidate_stage`` and the
+statistics around the parse are plain torch on whatever device the rows
+are on (the literal histogram through ``histogram_u8``, the CUDA kernel on
+a card).  Nothing here synchronises with the host.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import (U32, hash4, highbit, match_lengths, previous_occurrence,
-                     u32_at_every_byte, u64_at_every_byte)
+from .common import U32, hash4, highbit, u32_at_every_byte, u64_at_every_byte
 from .histogram import histogram_u8
-
-MIN_MATCH = 4
+from . import lz_parse
 
 
 def parse_blocks_ptrjump(blocks: torch.Tensor, n_valid: torch.Tensor,
@@ -36,73 +35,14 @@ def parse_blocks_ptrjump(blocks: torch.Tensor, n_valid: torch.Tensor,
       offs    int32 [B, max_seq]  match distances
       nseq    int32 [B]           number of real sequences
       covered bool  [B, N]        positions covered by matches
-    """
-    B, n = blocks.shape
+
+    CUDA rows go through one launch of the ``csrc/lz_parse.cu`` kernel
+    (``lz_parse.parse_lanes``), CPU rows through its plain torch version
+    (``lz_parse.parse_plain``)."""
     if max_seq is None:
-        max_seq = n // 8
-    dev = blocks.device
-    i64 = torch.int64
-    idx = torch.arange(n, device=dev)
-    nv = n_valid.to(i64)[:, None]
-
-    v32 = u32_at_every_byte(blocks)
-    h = hash4(v32, hash_log)
-    cand = previous_occurrence(h).to(i64)
-    valid = ((cand >= 0)
-             & (torch.gather(v32, 1, cand.clamp(min=0)) == v32)
-             & (idx + MIN_MATCH <= nv))
-    ml = match_lengths(blocks, torch.where(valid, cand, -1),
-                       u64_rounds=ml_u64_rounds,
-                       stride_rounds=ml_stride_rounds).to(i64)
-    ml = torch.minimum(ml, nv - idx)
-    valid = valid & (ml >= MIN_MATCH)
-
-    # next_valid[i] = smallest j >= i with valid[j]: reverse cumulative min
-    cand_pos = torch.where(valid, idx, n)
-    next_valid = torch.flip(torch.cummin(torch.flip(cand_pos, [1]), 1).values,
-                            [1])
-    pad = torch.full((B, 1), n, dtype=i64, device=dev)
-    j = torch.cat([next_valid, pad], 1)                    # match at cursor p
-    ml_pad = torch.cat([ml, torch.zeros_like(pad)], 1)
-    f = torch.where(j < n, (j + torch.gather(ml_pad, 1, j.clamp(0, n))
-                            ).clamp(max=n), n)
-
-    # orbit of cursor 0: R <- R | f^(2^k)(R), doubling f each round
-    orbit = torch.zeros(B, n + 1, dtype=torch.int32, device=dev)
-    orbit[:, 0] = 1
-    fk = f
-    for _ in range(max(1, (max_seq + 1).bit_length())):
-        hit = torch.zeros_like(orbit).scatter_reduce_(
-            1, fk, orbit, "amax", include_self=True)
-        orbit = torch.maximum(orbit, hit)
-        fk = torch.gather(fk, 1, fk)
-
-    # selected match starts = nv of orbit cursors (distinct by progress)
-    take = (orbit > 0) & (j < n)
-    sel = torch.zeros_like(orbit).scatter_reduce_(
-        1, torch.where(take, j, n), take.to(torch.int32), "amax",
-        include_self=True)[:, :n]
-    nseq = sel.sum(1).clamp(max=max_seq)
-
-    # compact the selected positions in order via one sort (unique keys)
-    key = torch.where(sel > 0, idx, n + idx)
-    sorted_idx = torch.sort(key, dim=1).values[:, :max_seq]
-    k = torch.arange(max_seq, device=dev)
-    live = k < nseq[:, None]
-    starts = torch.where(live, sorted_idx, n)
-    sc = starts.clamp(0, n - 1)
-    mls = torch.where(live, torch.gather(ml, 1, sc), 0)
-    offs = torch.where(live, sc - torch.gather(cand, 1, sc), 0)
-
-    real = starts < n
-    delta = torch.zeros(B, n + 1, dtype=i64, device=dev)
-    delta.scatter_add_(1, torch.where(real, starts, n), real.to(i64))
-    ends = torch.clamp(starts + mls, max=n)
-    delta.scatter_add_(1, torch.where(real, ends, n), -real.to(i64))
-    covered = torch.cumsum(delta[:, :n], 1) > 0
-    return {"starts": starts.to(torch.int32), "mls": mls.to(torch.int32),
-            "offs": offs.to(torch.int32), "nseq": nseq.to(torch.int32),
-            "covered": covered}
+        max_seq = blocks.shape[-1] // 8
+    return lz_parse.parse(blocks, n_valid, max_seq, hash_log, ml_u64_rounds,
+                          ml_stride_rounds, compact=False)
 
 
 def parse_block(blocks: torch.Tensor, n_valid: torch.Tensor,
