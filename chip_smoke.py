@@ -84,12 +84,23 @@ Phases, each printed on its own line:
      slowest lane (``kernel_bench.parse_passes``, also on the 128 KB
      chunk), the serial floor (that lane alone) and the bound
      (``kernel_bench.parse_work``);
+ 6c. assemble: the assembly kernel (``csrc/assemble.cu``) against its
+     plain version (``assemble.assemble_plain``), rows and out_len byte
+     for byte, on every call the encode plane makes to ``assemble.assemble``
+     for the encode workload and the coverage records (captured through
+     ``kernel_bench.capture_assemble``: nine 16 KB chunks and one each of
+     the 4, 64 and 128 KB buckets); on the encode cell's first chunk its
+     time through the wrapper, its device time (profiler) and the
+     wrapper's host time, the plain version's, the serial floor (the lane
+     with the most sequences alone, through the wrapper and in device
+     time), the bound (``kernel_bench.assemble_work``) and the 128 KB
+     chunk's time;
   7. encode end to end: every frame decodes byte-exact with the host tier,
      the 256 records' frames decode byte-exact through the port's decode
      plane with none routed to the host, none of the 256 records is
      routed to the host encoder, the first 32-record chunk's frames equal
      the port's CPU run byte for byte, and the histogram and the parse
-     kernels were launched;
+     kernels were launched, the assembly kernel once a chunk;
   8. encode timings (printed, not asserted): marginal GB/s, stage times,
      compressed bytes, and the host tier's level-1 compress on the same
      records;
@@ -109,8 +120,8 @@ Phases, each printed on its own line:
      prints GB/s and telemetry;
  11. records encode through ``compress_records_device`` on the 256 x 16 KB
      encode records: every frame decodes byte-exact with the host tier,
-     the frames equal ``compress_batch_device``'s, the histogram and the
-     parse kernels launched;
+     the frames equal ``compress_batch_device``'s, the histogram, the
+     parse and the assembly kernels launched;
  12. ``zstdsharp_tpu_torch.graft_entry``: ``entry("cuda")`` equals
      ``entry("cpu")`` and launched the histogram and the parse kernels,
      and
@@ -144,8 +155,8 @@ Phases, each printed on its own line:
  16. one decode of the decode cell under torch.profiler: its device
      events and the LZ executor kernel's device ms; one encode of the
      encode cell: its device events (in all and a chunk), the device's
-     busy share and the parse kernel's launches and device ms; then one
-     more level-1
+     busy share, and the parse and the assembly kernels' launches (the
+     assembly's once a chunk, 8) and device ms; then one more level-1
      stream compress of phase 9's input under torch.profiler: device
      events, the device's busy share (the union of their intervals over
      the call's wall time) and the time of the copies and sorts.  They
@@ -551,17 +562,19 @@ def _corrupt_phase(data, dev, card):
 
 
 def _kernel_wrappers():
-    from zstdsharp_tpu_torch.ops import device_fse, device_huf, execseq
-    from zstdsharp_tpu_torch.ops import histogram, lz_parse
+    from zstdsharp_tpu_torch.ops import assemble, device_fse, device_huf
+    from zstdsharp_tpu_torch.ops import execseq, histogram, lz_parse
 
     return {"huf_decode": device_huf.decode_lanemajor,
             "fse_decode": device_fse.decode_lanemajor,
             "histogram": histogram.histogram_u8,
             "lz_exec": execseq.execute_lanes,
-            "lz_parse": lz_parse.parse_lanes}
+            "lz_parse": lz_parse.parse_lanes,
+            "assemble": assemble.assemble_lanes}
 
 DECODE_KERNELS = ("huf_decode", "fse_decode", "lz_exec")
-ENCODE_KERNELS = ("histogram", "lz_parse")
+ENCODE_KERNELS = ("histogram", "lz_parse", "assemble")
+PARSE_KERNELS = ("histogram", "lz_parse")  # entry(): parse_block_stats
 
 
 def _reset_counts():
@@ -740,26 +753,118 @@ def _lz_parse_phase(recs, extras, dev, card):
             "passes_cycles": passes, "sm_clock_mhz": mhz}
 
 
+def _assemble_equal(call, name):
+    """The assembly kernel against its plain version on one captured
+    ``assemble`` call: rows and out_len.  Returns (max_abs_err, the
+    kernel's (rows, out_len))."""
+    import torch
+
+    from zstdsharp_tpu_torch.kernel_bench import run_assemble
+    from zstdsharp_tpu_torch.ops import assemble as asm
+
+    got = run_assemble(call)
+    torch.cuda.synchronize()
+    want = run_assemble(call, asm.assemble_plain)
+    err = 0.0
+    for g, w in zip(got, want):
+        _check(g.shape == w.shape and g.dtype == w.dtype,
+               f"{name}: the kernel's shapes and dtypes")
+        err = max(err, float((g.long() - w.long()).abs().max()))
+    _check(err == 0.0, f"{name}: the assembly kernel equals its plain "
+           "version")
+    return err, got
+
+
+def _assemble_phase(recs, extras, dev, card):
+    """Phase 6c: the assembly kernel (``csrc/assemble.cu``) against its
+    plain version, rows and out_len byte for byte, on every call the
+    encode plane makes to ``assemble`` for the encode workload and the
+    coverage records (captured through ``kernel_bench.capture_assemble``:
+    nine 16 KB chunks and one each of the 4, 64 and 128 KB buckets); then,
+    on the encode cell's first chunk, the kernel's time through the
+    wrapper, its device time and the wrapper's host time, the plain
+    version's, the serial floor (the lane with the most sequences alone)
+    and the bound (``kernel_bench.assemble_work``), and the 128 KB chunk's
+    time.  Returns the kernel's JSON fields."""
+    from zstdsharp_tpu_torch.encode.device_pipeline import (
+        compress_batch_device)
+    from zstdsharp_tpu_torch.kernel_bench import (assemble_lane,
+                                                  assemble_work, bound,
+                                                  capture_assemble,
+                                                  device_ms, host_ms,
+                                                  run_assemble)
+    from zstdsharp_tpu_torch.ops import assemble as asm
+
+    calls = capture_assemble(lambda: compress_batch_device(recs + extras,
+                                                           dev))
+    widths = sorted({c["blocks"].shape[1] for c in calls})
+    _check(widths == [4 << 10, 16 << 10, 64 << 10, 128 << 10],
+           f"the encode plane assembles every bucket {widths}")
+    err, shapes = 0.0, {}
+    for i, c in enumerate(calls):
+        e, _ = _assemble_equal(c, f"assemble call {i}")
+        err = max(err, e)
+        key = tuple(c["blocks"].shape)
+        shapes[key] = shapes.get(key, 0) + 1
+    cell = next(c for c in calls if c["blocks"].shape[1] == ENC_REC_SIZE)
+    _, out = _assemble_equal(cell, "the encode cell's first chunk")
+    ms = _gpu_ms(lambda: run_assemble(cell), 20)
+    plain_ms = _gpu_ms(lambda: run_assemble(cell, asm.assemble_plain), 3)
+    lane = int(cell["parsed"]["nseq"].argmax())
+    n_lane = int(cell["parsed"]["nseq"][lane])
+    one = assemble_lane(cell, lane)
+    _assemble_equal(one, "the lane with the most sequences alone")
+    floor_ms = _gpu_ms(lambda: run_assemble(one), 20)
+    names = ("assemble_kernel",)
+    dev_ms = device_ms(lambda: run_assemble(cell), 20, names)
+    floor_dev_ms = device_ms(lambda: run_assemble(one), 20, names)
+    wrapper_ms = host_ms(lambda: run_assemble(cell), 200)
+    big = next(c for c in calls if c["blocks"].shape[1] == 128 << 10)
+    big_ms = _gpu_ms(lambda: run_assemble(big), 5)
+    n_big = int(big["parsed"]["nseq"].max())
+    bound_ms, bound_by = bound(*assemble_work(cell, out))
+    print(f"phase assemble: kernel == plain on {len(calls)} encode-plane "
+          f"calls (calls by shape: {shapes}; max_abs_err {err}); encode "
+          f"cell's first chunk {tuple(cell['blocks'].shape)}: kernel "
+          f"{ms:.4f} ms through the wrapper ({dev_ms:.4f} ms of device time; "
+          f"the wrapper's host time {wrapper_ms:.4f} ms a call), plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by}); serial "
+          f"floor: the lane with the most sequences ({n_lane}) alone "
+          f"{floor_ms:.4f} ms ({floor_dev_ms:.4f} ms of device time); 128 KB "
+          f"chunk {big_ms:.4f} ms (most sequences {n_big}); no single "
+          f"PyTorch call computes it (CUDA events, profiler) on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "serial_floor_ms": floor_ms, "serial_floor_nseq": n_lane,
+            "device_ms": dev_ms, "serial_floor_device_ms": floor_dev_ms,
+            "wrapper_host_ms": wrapper_ms, "chunk_128KB_ms": big_ms}
+
+
 def _encode_profile_phase(recs, dev, card):
     """Phase 16, second part: one encode of the encode cell under
     torch.profiler: device events (a chunk and in all), the device's busy
-    share (the union of their intervals over the call's wall time) and the
-    parse kernel's launches and device ms."""
+    share (the union of their intervals over the call's wall time), and
+    the parse and the assembly kernels' launches (as the profiler records
+    them; the assembly's once a chunk by its wrapper's count) and device
+    ms.  Returns the parse's and the assembly's JSON fields."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from zstdsharp_tpu_torch.encode.device_pipeline import (
         LANES, compress_batch_device)
+    from zstdsharp_tpu_torch.ops import assemble as asm
 
     compress_batch_device(recs, dev)
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
+        before = asm.assemble_lanes.launches
         t = time.perf_counter()
         compress_batch_device(recs, dev)
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t) * 1e3
+        launched = asm.assemble_lanes.launches - before
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     _check(events, "the profiler recorded device events")
     busy, end = 0.0, float("-inf")
@@ -770,20 +875,30 @@ def _encode_profile_phase(recs, dev, card):
     parse = [e for e in events if "parse_kernel" in e.name]
     _check(parse, "the profiler saw the parse kernel")
     parse_ms = sum(e.time_range.elapsed_us() for e in parse) / 1e3
+    asmb = [e for e in events if "assemble_kernel" in e.name]
+    _check(asmb, "the profiler saw the assembly kernel")
     chunks = -(-len(recs) // LANES)
+    _check(launched == chunks, f"the assembly kernel once a chunk "
+           f"({launched} launches, {chunks} chunks)")
+    asm_ms = sum(e.time_range.elapsed_us() for e in asmb) / 1e3
     print(f"phase encode profile: one encode of the {len(recs)} records "
           f"({chunks} chunks): wall {wall:.1f} ms (profiled), "
           f"{len(events)} device events ({len(events) / chunks:.0f} a "
           f"chunk), device busy {busy / 1e3:.3f} ms (share "
           f"{busy / 1e3 / wall:.4f}); the lz_parse kernel {len(parse)} "
-          f"launches, {parse_ms:.4f} ms of device time on {card}")
-    return {"encode_events": len(events), "encode_busy_share":
-            busy / 1e3 / wall, "encode_device_ms": parse_ms}
+          f"launches, {parse_ms:.4f} ms of device time; the assemble kernel "
+          f"{launched} launches ({len(asmb)} recorded by the profiler), "
+          f"{asm_ms:.4f} ms of device time on {card}")
+    common = {"encode_events": len(events),
+              "encode_busy_share": busy / 1e3 / wall}
+    return ({**common, "encode_device_ms": parse_ms},
+            {**common, "encode_device_ms": asm_ms,
+             "encode_launches": launched})
 
 
 def _encode_phases(data, dev, card):
-    """Phases 6-8.  Returns (the histogram's and the parse kernel's JSON
-    fields, their launches in the encode path)."""
+    """Phases 6-8.  Returns (the histogram's, the parse kernel's and the
+    assembly kernel's JSON fields, their launches in the encode path)."""
     import numpy as np
     import torch
 
@@ -812,6 +927,7 @@ def _encode_phases(data, dev, card):
                            .copy()).to(dev)
     hist = _hist_phase(lit_sorted, mask, odd, card)
     lzp = _lz_parse_phase(recs, extras, dev, card)
+    asmb = _assemble_phase(recs, extras, dev, card)
 
     # ---- the encode path, once, through the user entry point ----
     all_in = recs + extras
@@ -822,6 +938,9 @@ def _encode_phases(data, dev, card):
     launches = {k: counts[k] for k in ENCODE_KERNELS}
     _check(all(v > 0 for v in launches.values()),
            f"encode kernels launched ({launches})")
+    _check(launches["assemble"] == len(chunks),
+           f"the assembly kernel once a chunk ({launches}, {len(chunks)} "
+           "chunks)")
     _check(all(r.device == dev and ln.device == dev for _, r, ln in chunks),
            "frame rows stay on the card")
     frames = [None] * len(all_in)
@@ -881,7 +1000,7 @@ def _encode_phases(data, dev, card):
           f"compressed {csize} B; host compress L1 "
           f"{payload / host_s / 1e9:.4f} GB/s ({host_s * 1e3:.2f} ms) -> "
           f"{host_size} B on {card}")
-    return hist, lzp, launches
+    return hist, lzp, asmb, launches
 
 
 def _compress_phase(big, data, mesh, dev, card):
@@ -1077,7 +1196,7 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
     torch.cuda.synchronize()
     counts = _counts()
     _check(all(a.device == dev for a in args), "entry() arguments on card")
-    _check(all(counts[k] > 0 for k in ENCODE_KERNELS),
+    _check(all(counts[k] > 0 for k in PARSE_KERNELS),
            f"entry() launched the histogram and the parse {counts}")
     c_fn, c_args = graft_entry.entry("cpu")
     want = c_fn(*c_args)
@@ -1465,7 +1584,7 @@ def main() -> int:
           f"off {payload / ctypes_s / 1e9:.4f} GB/s ({ctypes_s * 1e3:.2f} "
           f"ms), medians of 5 on {card}")
 
-    hist, lzp, enc_launches = _encode_phases(data, dev, card)
+    hist, lzp, asmb, enc_launches = _encode_phases(data, dev, card)
     launches.update(enc_launches)
     dp_launches = _stream_phases(big, data, recs, frames,
                                  _encode_workload(data)[0], dev, card)
@@ -1476,7 +1595,10 @@ def main() -> int:
     for k, v in _api_phase(recs, data, card).items():
         launches[k] += v
     lz.update(_decode_profile_phase(frames, dev, card))
-    lzp.update(_encode_profile_phase(_encode_workload(data)[0], dev, card))
+    parse_prof, asm_prof = _encode_profile_phase(_encode_workload(data)[0],
+                                                 dev, card)
+    lzp.update(parse_prof)
+    asmb.update(asm_prof)
     _stream_profile(big, dev, card)
 
     kernels = [{"name": name, "route": "cuda",
@@ -1488,7 +1610,8 @@ def main() -> int:
                    ("fse_decode", fse, "fse_decode.cu", "device_fse.py:292"),
                    ("histogram", hist, "histogram.cu", "histogram.py:36"),
                    ("lz_exec", lz, "lz_exec.cu", "execseq.py:41"),
-                   ("lz_parse", lzp, "lz_parse.cu", "device_encode.py:421"))]
+                   ("lz_parse", lzp, "lz_parse.cu", "device_encode.py:421"),
+                   ("assemble", asmb, "assemble.cu", "device_encode.py:643"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,13 @@ from zstdsharp_tpu_torch.decode.frame import Decompressor, decompress
 from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.encode.frame import compress
 from zstdsharp_tpu_torch.graft_entry import entry
-from zstdsharp_tpu_torch.kernel_bench import (capture_exec, capture_parse,
-                                             exec_args, lz_corrupt,
-                                             lz_corrupt_lanes, parse_rows,
+from zstdsharp_tpu_torch.kernel_bench import (ASSEMBLE_ARGS, assemble_lane,
+                                             capture_assemble, capture_exec,
+                                             capture_parse, exec_args,
+                                             lz_corrupt, lz_corrupt_lanes,
+                                             parse_rows, run_assemble,
                                              run_lanes, run_parse)
+from zstdsharp_tpu_torch.ops import assemble as asm
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
 from zstdsharp_tpu_torch.ops import execseq as ex
@@ -38,6 +41,9 @@ from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
                                                    compress_records_device,
                                                    decompress_data_parallel,
                                                    make_mesh)
+
+from torch_assemble_cases import (assemble_call, assemble_records,
+                                  pad_records, roll_back)
 
 pytestmark = pytest.mark.cuda
 
@@ -969,6 +975,107 @@ def test_encode_and_entry_parse_through_the_kernel(cuda):
     c_fn, c_args = entry("cpu")
     got, want = fn(*args), c_fn(*c_args)
     assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+def _assemble_equal(call):
+    """assemble_lanes (one launch) against assemble_plain on the same CUDA
+    tensors: rows and out_len byte for byte.  Returns the kernel's."""
+    before = asm.assemble_lanes.launches
+    rows, lens = run_assemble(call)
+    torch.cuda.synchronize()
+    assert asm.assemble_lanes.launches == before + 1
+    want_rows, want_lens = run_assemble(call, asm.assemble_plain)
+    assert rows.dtype == torch.uint8 and lens.dtype == torch.int32
+    assert rows.shape == want_rows.shape and lens.shape == want_lens.shape
+    assert torch.equal(lens, want_lens)
+    assert torch.equal(rows, want_rows)
+    return rows, lens
+
+
+@pytest.mark.parametrize("n", [1 << 12, 1 << 14, 1 << 16, 1 << 17])
+def test_assemble_buckets_equal_plain(cuda, n):
+    """A 32-lane chunk of each bucket from parse_rows and the corpus,
+    through the real parse and tables (the 128 KB chunk runs from device
+    memory, the others from shared memory)."""
+    blocks, nv = _parse_operands(n, n + 1, cuda)
+    call = assemble_call(blocks, nv)
+    _, lens = _assemble_equal(call)
+    assert int(call["parsed"]["nseq"].max()) > 100
+    assert bool((lens < nv.to(torch.int32) + 12).any())  # compressed lanes
+
+
+@pytest.mark.parametrize("huf_literals", [True, False])
+@pytest.mark.parametrize("n", [1 << 12, 1 << 14])
+def test_assemble_edge_lanes_equal_plain(cuda, n, huf_literals):
+    """nseq 0, 1, 2 and the cap, literals under 64, raw blocks with and
+    without sequences, empty / 1-byte / n-byte records, fresh, RLE and a
+    rolled-back lane, with Huffman literals on and off."""
+    blocks, nv = pad_records(assemble_records(n, n + huf_literals), n)
+    call = assemble_call(torch.from_numpy(blocks).to(cuda),
+                         torch.from_numpy(nv).to(cuda), huf_literals)
+    ns, mode = call["parsed"]["nseq"], call["seq"]["mode"]
+    roll_back(call, int(torch.nonzero((ns >= 32) & (mode > 0))[-1]))
+    assert int(ns.max()) == call["parsed"]["starts"].shape[1]
+    _assemble_equal(call)
+
+
+@pytest.mark.parametrize("W,WQ", [(3, 2000), (400, 5), (1, 1)])
+def test_assemble_cut_streams_equal_plain(cuda, W, WQ):
+    """Capacities below the streams' lengths: halves past them dropped,
+    the bytes past them repeating the last kept byte."""
+    blocks, nv = pad_records(assemble_records(1 << 12, 5), 1 << 12)
+    call = assemble_call(torch.from_numpy(blocks).to(cuda),
+                         torch.from_numpy(nv).to(cuda))
+    _assemble_equal(dict(call, W=W, WQ=WQ))
+
+
+def test_assemble_one_lane_and_determinism(cuda):
+    """The lane with most sequences alone (the serial floor's operands)
+    gives its row in the chunk; two launches give the same bytes."""
+    blocks, nv = _parse_operands(1 << 14, 9, cuda)
+    call = assemble_call(blocks, nv)
+    rows, lens = _assemble_equal(call)
+    lane = int(call["parsed"]["nseq"].argmax())
+    one, one_lens = _assemble_equal(assemble_lane(call, lane))
+    assert torch.equal(one[0], rows[lane]) and one_lens[0] == lens[lane]
+    again, _ = run_assemble(call)
+    torch.cuda.synchronize()
+    assert torch.equal(again, rows)
+
+
+def test_assemble_raises_off_the_card_and_on_bad_operands(cuda):
+    blocks, nv = _parse_operands(1 << 12, 4, cuda)
+    call = assemble_call(blocks, nv)
+    args = [call[k] for k in ASSEMBLE_ARGS]
+    cpu = assemble_call(blocks.cpu(), nv.cpu())
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        asm.assemble_lanes(*(cpu[k] for k in ASSEMBLE_ARGS))
+    for i, bad in ((0, args[0][:, ::2]), (0, args[0][0]), (1, args[1][:3]),
+                   (3, args[3][:, :100].contiguous()),
+                   (0, torch.zeros(32, 4000, dtype=torch.uint8,
+                                   device=cuda))):
+        with pytest.raises(ValueError):
+            asm.assemble_lanes(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(TypeError):
+        asm.assemble_lanes(args[0].to(torch.int32), *args[1:])
+    with pytest.raises(ValueError):
+        asm.assemble_lanes(*args[:7], 0, args[8])
+    maps = call["seq"]["ll"][0]
+    seq = dict(call["seq"], ll=(maps.cpu(), *call["seq"]["ll"][1:]))
+    with pytest.raises(ValueError):
+        asm.assemble_lanes(*args[:6], seq, *args[7:])
+
+
+def test_encode_plane_assembles_through_the_kernel(cuda):
+    """compress_batch_device launches the kernel once a chunk, and each
+    captured call equals the plain version."""
+    recs = _records(40, 3_000, 91) + [b"ab" * 9000, b""]
+    before = asm.assemble_lanes.launches
+    calls = capture_assemble(lambda: compress_batch_device(recs, cuda))
+    torch.cuda.synchronize()
+    assert asm.assemble_lanes.launches == before + len(calls) == before + 3
+    for c in calls:
+        _assemble_equal(c)
 
 
 @pytest.mark.parametrize("n", [1 << 16, 1 << 17])

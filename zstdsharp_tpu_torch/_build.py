@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("huf_decode.cu", "fse_decode.cu", "histogram.cu", "lz_exec.cu",
-           "lz_parse.cu")
+           "lz_parse.cu", "assemble.cu")
 LIB_PATH = BUILD_DIR / "libzt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,5 +136,9 @@ def load() -> ctypes.CDLL:
                                      q, p, p, p, i, i, p]
         lib.zt_lz_parse.restype = i
         lib.zt_lz_parse.argtypes = [p, p, i, i, i, i, i, i] + [p] * 15
+        lib.zt_assemble.restype = i
+        lib.zt_assemble.argtypes = [p] * 32 + [i] * 13 + [p]
+        lib.zt_assemble_scratch.restype = q
+        lib.zt_assemble_scratch.argtypes = [i] * 8
         _lib = lib
         return lib

@@ -48,7 +48,9 @@ held to.
 time on the calls the decode plane makes; ``capture_parse``,
 ``run_parse``, ``parse_lane``, ``parse_passes``, ``parse_work`` and
 ``parse_rows`` serve the encode plane's parse kernel
-(``csrc/lz_parse.cu``) the same way.
+(``csrc/lz_parse.cu``) the same way, and ``capture_assemble``,
+``run_assemble``, ``assemble_lane`` and ``assemble_work`` its assembly
+kernel (``csrc/assemble.cu``).
 
 3. The parse kernel (``csrc/lz_parse.cu``) on the main path's calls of
    ``lz_parse.parse_lanes`` (``parse_windows``: the encode cell's first
@@ -79,7 +81,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops import device_fse, device_huf, execseq, lz_parse
+from .ops import assemble, device_fse, device_huf, execseq, lz_parse
 
 ROOT = Path(__file__).resolve().parent.parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -442,6 +444,102 @@ def parse_work(call, out: dict) -> tuple[int, int]:
     ops = 20 * cnt + 10 * (matched // 4 + 2 * int(nseq.sum())) \
         + 30 * int(nseq.sum())
     return n_bytes, ops
+
+
+ASSEMBLE_ARGS = ("blocks", "n_valid", "parsed", "lit_sorted", "lit_count",
+                 "huf", "seq", "W", "WQ")
+
+
+def capture_assemble(run) -> list:
+    """Call ``run()`` with ``assemble.assemble`` (the dispatch that
+    ``device_encode.encode_frames_device`` calls: the kernel on a card, the
+    plain version on the CPU) recording each call: a dict of its
+    arguments (``ASSEMBLE_ARGS``; tensors as copies, ``parsed`` with its
+    four sequence keys only)."""
+    calls, real = [], assemble.assemble
+
+    def spy(*args):
+        c = dict(zip(ASSEMBLE_ARGS, args))
+        copy = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for k, v in c.items() if k not in ("parsed", "huf", "seq")}
+        copy["parsed"] = {k: c["parsed"][k].clone()
+                          for k in ("starts", "mls", "offs", "nseq")}
+        copy["huf"] = tuple(t.clone() for t in c["huf"])
+        copy["seq"] = {k: (tuple(t.clone() for t in v)
+                           if isinstance(v, tuple) else v.clone())
+                       for k, v in c["seq"].items()}
+        calls.append(copy)
+        return real(*args)
+
+    assemble.assemble = spy
+    try:
+        run()
+    finally:
+        assemble.assemble = real
+    return calls
+
+
+def run_assemble(call, fn=None):
+    """`fn` (default ``assemble.assemble_lanes``; ``assemble.assemble_plain``
+    for the plain version) on a ``capture_assemble`` record: (rows,
+    out_len)."""
+    fn = assemble.assemble_lanes if fn is None else fn
+    return fn(*(call[k] for k in ASSEMBLE_ARGS))
+
+
+def assemble_lane(call, lane: int) -> dict:
+    """Lane `lane` of a ``capture_assemble`` record alone (the serial floor:
+    the kernel's time is then that lane's chains and passes)."""
+    def one(t):
+        return t[lane:lane + 1].contiguous()
+
+    c = dict(call)
+    for k in ("blocks", "n_valid", "lit_sorted", "lit_count"):
+        c[k] = one(call[k])
+    c["parsed"] = {k: one(v) for k, v in call["parsed"].items()}
+    c["huf"] = tuple(one(t) for t in call["huf"])
+    c["seq"] = {k: (tuple(one(t) for t in v) if isinstance(v, tuple)
+                    else one(v)) for k, v in call["seq"].items()}
+    return c
+
+
+def assemble_work(call, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``assemble.assemble_lanes`` call (a
+    ``capture_assemble`` record) and its outputs `out` (rows, out_len),
+    counted as the kernel reads and writes for this data: the rows and
+    out_len written; a lane's lit_count literals where it sizes the
+    Huffman streams (a Huffman table and a sequence) or copies raw
+    literals (a compressed block), its n_valid record bytes where it is a
+    raw block (out_len = 12 + n_valid), 12 bytes a live sequence (starts,
+    mls, offs), every lane's FSE tables (maps, nbs, init, flush) and
+    Huffman codes and widths, the descriptor bytes of a Huffman section,
+    the table area of a compressed block, seven scalars a lane and the
+    281-entry LUT once.  Operations: about 40 a live sequence (its values
+    and codes, three chain steps, six fields masked, shifted and ORed), 10
+    a literal read (its Huffman width and field, or its copy) and one a row
+    byte (cleared, masked, stored)."""
+    blocks = call["blocks"]
+    B, N = blocks.shape
+    S = call["parsed"]["starts"].shape[1]
+    rows, out_len = out
+    codes, nbits, _, dlen, ok = call["huf"]
+    seq = call["seq"]
+    ns_raw = call["parsed"]["nseq"].long()
+    ns = ns_raw.clamp(0, S)
+    nv = call["n_valid"].long().clamp(0, N)
+    lc = call["lit_count"].long().clamp(0, N)
+    raw = out_len.long() == 12 + call["n_valid"].long()
+    huf = ~raw & ((rows[:, 12].long() & 3) == 2)
+    lits = torch.where((ok & (ns_raw > 0)) | ~raw, lc, 0)
+    tables = [t for name in assemble.STREAMS for t in seq[name]]
+    n_bytes = (rows.numel() + 4 * B + int(lits.sum())
+               + int(torch.where(raw, nv, 0).sum()) + 12 * int(ns.sum())
+               + sum(t.numel() * t.element_size()
+                     for t in (*tables, codes, nbits))
+               + int(torch.where(huf, dlen.long(), 0).sum())
+               + int(torch.where(raw, 0, seq["tbl_len"].long()).sum())
+               + 25 * B + 4 * 281)
+    return n_bytes, 40 * int(ns.sum()) + 10 * int(lits.sum()) + rows.numel()
 
 
 def parse_rows(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:

@@ -14,11 +14,12 @@ Three phases per batch of B padded records ``[B, N]``, as the reference:
    host synchronisation -- then the reference's numpy table builders
    (canonical Huffman literal tables, fresh/RLE/predefined FSE tables at
    the default logs), uploaded once;
-3. assembly (device): every FSE encoder state at once by composing the
-   per-symbol permutation maps (64-step chunks, then a log-depth suffix
-   composition over chunks), the sequence and 4-stream Huffman bitstreams
-   through the prefix-scan packer, and a byte-position classifier that
-   writes the frame row.
+3. assembly (device): the FSE state chains, the sequence and 4-stream
+   Huffman bitstreams and the frame row, on a GPU in one launch of the
+   ``csrc/assemble.cu`` kernel (``assemble.assemble_lanes``) and on the
+   CPU in its plain torch version (``assemble.assemble_plain``: the state
+   chains by permutation-map composition, the prefix-scan packer and a
+   byte-position classifier).
 
 The reference vmaps one-lane functions; here the lane axis is the leading
 dimension of every tensor.  Integer semantics are the reference's with
@@ -41,9 +42,9 @@ import torch
 from .. import constants as C
 from ..entropy import fse, huffman
 
-from .common import U32, highbit, pack_bits_device
+from .common import highbit
 from .histogram import histogram_u8
-from . import lz_parse
+from . import assemble, lz_parse
 
 MINMATCH = 3  # format minimum (the parse emits >= 4)
 
@@ -415,161 +416,6 @@ def word_budget(s: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3 (device): frame assembly
-# ---------------------------------------------------------------------------
-
-
-def _le_bytes(words, k):
-    """[..., M] values -> [..., M*k] little-endian bytes (int64)."""
-    sh = 8 * torch.arange(k, device=words.device)
-    return ((words[..., None] >> sh) & 0xFF).reshape(*words.shape[:-1], -1)
-
-
-def _assembly_phase(blocks, n_valid, parsed, lit_sorted, lit_count, huf,
-                    seq, W: int, WQ: int):
-    """Compose one frame row per record (reference ``_encode_lane``,
-    vmapped by ``_assembly_phase``).  Returns (rows uint8 [B, N+16],
-    out_len int32 [B])."""
-    B, N = blocks.shape
-    dev = blocks.device
-    i64 = torch.int64
-    lut = _dev_consts(dev)
-    t = _tables()
-    ns = parsed["nseq"].to(i64)
-    nv = n_valid.to(i64)
-    h_codes, h_nbits, h_desc, h_dlen, h_ok = huf
-
-    real, ll, mlv, ofb = _seq_values(parsed["starts"], parsed["mls"],
-                                     parsed["offs"], parsed["nseq"])
-    ll_code, ml_code, of_code = _codes_from_values(ll, mlv, ofb, lut)
-
-    # FSE state chains (per-row fresh/RLE/predefined tables)
-    of_val, of_nb, of_fin = _fse_stream_states(of_code, ns, t["of"],
-                                               seq["of"][:3])
-    ml_val, ml_nb, ml_fin = _fse_stream_states(ml_code, ns, t["ml"],
-                                               seq["ml"][:3])
-    ll_val, ll_nb, ll_fin = _fse_stream_states(ll_code, ns, t["ll"],
-                                               seq["ll"][:3])
-
-    # extras (value masked by the packer to nbits)
-    ext_ll_nb = torch.where(real, lut["ll_bits"][ll_code.clamp(0, 35)], 0)
-    ext_ml_nb = torch.where(real, lut["ml_bits"][ml_code.clamp(0, 52)], 0)
-    ext_of_nb = torch.where(real, of_code, 0)
-
-    # field layout: per sequence i (emitted from i=S-1 down to 0):
-    #   [of_state, ml_state, ll_state, ll_extra, ml_extra, of_extra]
-    # then [ml_flush, of_flush, ll_flush].  Zero-width pads keep offsets
-    # exact (encode/block.py:encode_sequences_bitstream order).
-    vals6 = torch.stack([of_val, ml_val, ll_val, ll, mlv, ofb], 2
-                        ).flip(1).reshape(B, -1)
-    nbs6 = torch.stack([of_nb, ml_nb, ll_nb, ext_ll_nb, ext_ml_nb, ext_of_nb],
-                       2).flip(1).reshape(B, -1)
-    values = torch.cat([vals6, torch.stack([ml_fin, of_fin, ll_fin], 1)], 1)
-    tail_nbs = torch.stack([seq["ml"][3], seq["of"][3], seq["ll"][3]], 1)
-    nbits = torch.cat([nbs6, tail_nbs.to(i64)], 1) & U32
-    nbits = torch.where(ns[:, None] > 0, nbits, 0)
-    words, total_bits = pack_bits_device(values & U32, nbits, W)
-    bits_len = (total_bits + 7) >> 3
-    bits_bytes = _le_bytes(words, 4)                              # [B, 4W]
-
-    # ---- Huffman literal section (4-stream, device-packed) ----
-    L = lit_count.to(i64)
-    seg = ((L + 3) >> 2).clamp(min=1)[:, None, None]
-    SEGMAX = N // 4 + 1
-    tq = torch.arange(SEGMAX, device=dev)[None, None, :]
-    q = torch.arange(4, device=dev)[None, :, None]
-    seglen = torch.where(q < 3, seg, L[:, None, None] - 3 * seg)  # [B, 4, 1]
-    # symbols consumed back-to-front per quarter (encode_1x order)
-    srcpos = (q * seg + (seglen - 1 - tq)).clamp(0, N - 1)        # [B, 4, SEGMAX]
-    sym = torch.gather(lit_sorted.to(i64), 1, srcpos.reshape(B, -1))
-    hv = torch.gather(h_codes, 1, sym).reshape(B, 4, SEGMAX)
-    hb = torch.where(tq < seglen,
-                     torch.gather(h_nbits, 1, sym).reshape(B, 4, SEGMAX), 0)
-    hwords, htotal = pack_bits_device(hv, hb, WQ)                 # [B, 4, WQ]
-    sl = (htotal + 7) >> 3                                        # [B, 4]
-    hbytes = _le_bytes(hwords, 4)                                 # [B, 4, 4WQ]
-    comp_lit = h_dlen.to(i64) + 6 + sl.sum(1)
-    use_huf = h_ok & (5 + comp_lit < 3 + L) & (ns > 0)
-    lit_sec = torch.where(use_huf, 5 + comp_lit, 3 + L)
-
-    # section sizes
-    tbl_len = seq["tbl_len"].to(i64)
-    body = lit_sec + 2 + 1 + tbl_len + bits_len  # lits+nbseq+modes+tbls+fse
-    comp_total = 12 + body                       # frame hdr 9 + block hdr 3
-    raw_total = 12 + nv
-    use_raw = (ns == 0) | (comp_total >= raw_total)
-    out_len = torch.where(use_raw, raw_total, comp_total)
-
-    # frame header: magic | FHD 0xA0 (single-segment, 4-byte FCS) | FCS32
-    hdr9 = torch.cat([lut["magic"].expand(B, 5), _le_bytes((nv & U32)[:, None], 4)],
-                     1)
-    bsize = torch.where(use_raw, nv, body)
-    btype = torch.where(use_raw, 0, 2)
-    bh3 = _le_bytes((1 | (btype << 1) | (bsize << 3))[:, None], 3)
-    # raw-literal header (type 0, size_format 3)
-    lh3 = _le_bytes(((3 << 2) | (L << 4))[:, None], 3)
-    # compressed-literal header (type 2, size_format 3: 18+18-bit sizes);
-    # the 40-bit field  2 | 3<<2 | L<<4 | comp_lit<<22  emitted bytewise
-    Lu, cu = L & U32, comp_lit & U32
-    hh5 = torch.stack([
-        (2 | (3 << 2)) | ((Lu & 0xF) << 4),
-        (Lu >> 4) & 0xFF,
-        ((Lu >> 12) & 0x3F) | ((cu & 0x3) << 6),
-        (cu >> 2) & 0xFF,
-        (cu >> 10) & 0xFF,
-    ], 1)
-
-    # byte-position classifier: position j of the row reads every section
-    # at its clamped offset, then selects
-    OUT = N + 16
-    j = torch.arange(OUT, device=dev)[None, :]
-    jb = j - 12
-
-    def take(tbl, pos):
-        pos = pos.clamp(0, tbl.shape[-1] - 1).expand(B, OUT)
-        return torch.gather(tbl.to(i64), 1, pos)
-
-    col = lambda v: v[:, None]  # noqa: E731  ([B] -> [B, 1])
-    head = torch.where(j < 9, take(hdr9, j), take(bh3, j - 9))
-    raw_byte = take(blocks, jb)
-    lit_byte = take(lit_sorted, jb - 3)
-    raw_sec = torch.where(jb < 3, take(lh3, jb), lit_byte)
-    # huffman section byte: hdr5 | desc | jump | 4 streams
-    c_desc = 5
-    c_jump = c_desc + col(h_dlen.to(i64))
-    c_s0 = c_jump + 6
-    c_s1 = c_s0 + sl[:, 0:1]
-    c_s2 = c_s1 + sl[:, 1:2]
-    c_s3 = c_s2 + sl[:, 2:3]
-    jump6 = torch.stack([sl[:, 0] & 0xFF, sl[:, 0] >> 8, sl[:, 1] & 0xFF,
-                         sl[:, 1] >> 8, sl[:, 2] & 0xFF, sl[:, 2] >> 8], 1)
-    huf_sec = torch.where(
-        jb < c_desc, take(hh5, jb),
-        torch.where(jb < c_jump, take(h_desc, jb - c_desc),
-        torch.where(jb < c_s0, take(jump6, jb - c_jump),
-        torch.where(jb < c_s1, take(hbytes[:, 0], jb - c_s0),
-        torch.where(jb < c_s2, take(hbytes[:, 1], jb - c_s1),
-        torch.where(jb < c_s3, take(hbytes[:, 2], jb - c_s2),
-                    take(hbytes[:, 3], jb - c_s3)))))))
-    lit_sec_byte = torch.where(col(use_huf), huf_sec, raw_sec)
-
-    ls = col(lit_sec)
-    tl = col(tbl_len)
-    bits_byte = take(bits_bytes, jb - 3 - tl - ls)
-    tbl_byte = take(seq["tbl"], jb - 3 - ls)
-    nbseq_b = torch.where(jb == ls, 128 + col(ns >> 8), col(ns & 0xFF))
-    compressed = torch.where(
-        jb < ls, lit_sec_byte,
-        torch.where(jb < ls + 2, nbseq_b,
-            torch.where(jb == ls + 2, col(seq["mode"].to(i64)),
-                torch.where(jb < ls + 3 + tl, tbl_byte, bits_byte))))
-    tail = torch.where(col(use_raw), raw_byte, compressed)
-    row = torch.where(j < 12, head, tail) & 0xFF
-    row = torch.where(j < col(out_len), row, 0).to(torch.uint8)
-    return row, out_len.to(torch.int32)
-
-
-# ---------------------------------------------------------------------------
 # Entry
 # ---------------------------------------------------------------------------
 
@@ -632,7 +478,9 @@ def encode_frames_device(blocks: torch.Tensor, n_valid: torch.Tensor,
 
     SEGMAX = N // 4 + 1
     WQ = (SEGMAX * 11 + 24) // 32 + 2
-    out = _assembly_phase(blocks, n_valid, parsed, lit_sorted, lit_count,
-                          huf, seq, W, WQ)
+    # phase 3: the frame rows (the kernel on a card, its plain version on
+    # the CPU)
+    out = assemble.assemble(blocks, n_valid, parsed, lit_sorted, lit_count,
+                            huf, seq, W, WQ)
     tick("assembly")
     return out
