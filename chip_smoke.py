@@ -81,8 +81,9 @@ Phases, each printed on its own line:
      ``parse_block_stats`` rows ([4, 32768], hash_log 15, (16, 24)
      rounds); on the encode cell's first chunk its time through the
      wrapper, the plain version's, the SM cycles of each pass on the
-     slowest lane (``kernel_bench.parse_passes``, also on the 128 KB
-     chunk), the serial floor (that lane alone) and the bound
+     slowest lane and on the lane with the most sequences
+     (``kernel_bench.parse_passes``, also on the 128 KB chunk), the
+     serial floor (the slowest lane alone) and the bound
      (``kernel_bench.parse_work``);
  6c. assemble: the assembly kernel (``csrc/assemble.cu``) against its
      plain version (``assemble.assemble_plain``), rows and out_len byte
@@ -690,7 +691,8 @@ def _lz_parse_phase(recs, extras, dev, card):
     ``kernel_bench.capture_parse``: the 16 KB chunks, the 4, 64 and 128 KB
     buckets) and on ``graft_entry.entry``'s ``parse_block_stats`` rows;
     then, on the encode cell's first chunk, the kernel's time through the
-    wrapper, the plain version's, the SM cycles of each pass
+    wrapper, the plain version's, the SM cycles of each pass on the
+    slowest lane and on the lane with the most sequences
     (``kernel_bench.parse_passes``), the serial floor (the lane whose
     launch took longest, alone) and the bound (``kernel_bench.parse_work``).
     Returns the kernel's JSON fields."""
@@ -744,8 +746,9 @@ def _lz_parse_phase(recs, extras, dev, card):
           f"{big_ms:.4f} ms; parse_block_stats rows [4, 32768] at hash_log "
           f"15, (16, 24) rounds {stats_ms:.4f} ms; no single PyTorch call "
           f"computes it (CUDA events) on {card}")
-    print(f"phase lz_parse passes: SM cycles by pass on the slowest lane "
-          f"and the most of any lane, 16 KB and 128 KB chunks: {passes}; "
+    print(f"phase lz_parse passes: SM cycles by pass on the slowest lane, "
+          f"on the lane with the most sequences and the most of any lane, "
+          f"16 KB and 128 KB chunks: {passes}; "
           f"SM clock {mhz} MHz now on {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

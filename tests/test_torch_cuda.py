@@ -42,6 +42,7 @@ from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
                                                    decompress_data_parallel,
                                                    make_mesh)
 
+from torch_parse_cases import DIAGONAL_CASES, diagonal_rows
 from torch_assemble_cases import (assemble_call, assemble_records,
                                   pad_records, roll_back)
 
@@ -921,16 +922,49 @@ def test_lz_parse_odd_width_and_n_valid_equal_plain(cuda):
 
 
 def test_lz_parse_is_deterministic(cuda):
+    """20 launches in a row give the same outputs: the table walk behind
+    the hash groups' producers, the runs' scan and the segments' walks do
+    not depend on which warp runs first."""
     blocks, nv = _parse_operands(1 << 14, 3, cuda)
     a = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True)
-    b = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True)
+    again = [lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True)
+             for _ in range(20)]
     torch.cuda.synchronize()
-    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(a[k], b[k]) for b in again for k in a)
+
+
+@pytest.mark.parametrize("B", [1, 3, 32, 256])
+def test_lz_parse_lane_counts_equal_plain(cuda, B):
+    """One launch of 1, 3, 32 and 256 lanes of 16 KB (the chunk's rows
+    repeated), each lane as in the chunk."""
+    blocks, nv = _parse_operands(1 << 14, 12, cuda)
+    idx = torch.arange(B, device=cuda) % blocks.shape[0]
+    got = _parse_equal(blocks[idx].contiguous(), nv[idx].contiguous(),
+                       3276, 15, (8, 8), True)
+    one = _parse_equal(blocks, nv, 3276, 15, (8, 8), True)
+    for k in got:
+        assert torch.equal(got[k], one[k][idx]), k
+
+
+@pytest.mark.parametrize("rounds", [(8, 8), (16, 24)])
+@pytest.mark.parametrize("n", [1 << 12, 1 << 17])
+@pytest.mark.parametrize("case", DIAGONAL_CASES)
+def test_lz_parse_diagonal_cases_equal_plain(cuda, case, n, rounds):
+    """Runs of one byte and of periods 2-7 past the rounds' reach, runs
+    cut by n_valid or running into N, diagonals restarting after a
+    mismatch; the maps in shared memory (4 KB) and in device memory (128
+    KB)."""
+    blocks, nv = diagonal_rows(case, n, 2)
+    _parse_equal(torch.from_numpy(blocks).to(cuda),
+                 torch.from_numpy(nv).to(cuda), n // 8, 15, rounds,
+                 rounds == (8, 8))
 
 
 def test_lz_parse_stamps_each_pass(cuda):
-    """parse_lanes(stamps=) writes each row's SM clock after each pass, in
-    order, and changes no output."""
+    """parse_lanes(stamps=) writes each row's SM clock at the start and
+    after each pass (the clears, v32 with the hash groups and the table
+    walk, the diagonal lengths, the selection, the outputs), in order, and
+    changes no output."""
     blocks, nv = _parse_operands(1 << 14, 6, cuda)
     stamps = torch.zeros(blocks.shape[0], 6, dtype=torch.int64, device=cuda)
     a = lp.parse_lanes(blocks, nv, 3276, 15, 8, 8, compact=True,
@@ -940,6 +974,7 @@ def test_lz_parse_stamps_each_pass(cuda):
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert bool((stamps[:, 1:] >= stamps[:, :-1]).all())
     assert bool((stamps[:, 5] > stamps[:, 0]).all())
+    assert bool((stamps[:, 4] > stamps[:, 3]).all())  # the selection ran
 
 
 def test_lz_parse_raises_off_the_card_and_on_bad_shapes(cuda):

@@ -3,14 +3,19 @@
 ``parse_model`` is a numpy copy of ``csrc/lz_parse.cu``'s algorithm: the
 hash table of last positions walked 32 positions a step (a lane's
 candidate is the highest lower lane of its equal-hash group, else the
-table; the group's highest lane writes the table), the match extension
-rounds per position, the greedy walk by jump bytes over the
-valid-position bitmask and its one-bit-a-word summary, and the compaction
-through the literal words' prefix sums.  It and the port's
+table; the group's highest lane writes the table), the match lengths
+along diagonals (32-position tiles walked backward, extending only at a
+diagonal's last position, each warp's run joined to the next by a
+reverse scan), the greedy walk by jump bytes over the valid-position
+bitmask and its one-bit-a-word summary, cut into 32 segments walked at
+once and stitched by the true walk up to where it meets each, and the
+compaction through the literal words' prefix sums.  It and the port's
 plain version (``_parse_phase`` / ``parse_blocks_ptrjump`` on CPU tensors)
 are held to the JAX package's ``_parse_phase`` and ``parse_blocks_ptrjump``
 (traced with x64 off, as the device encoder traces them): every output is
-an integer or bool array and must be exactly equal.
+an integer or bool array and must be exactly equal.  The derived lengths
+are also held to the reference's rounds (``_match_lengths``) at every
+position.
 """
 
 import jax
@@ -25,9 +30,11 @@ from zstdsharp_tpu_torch.kernel_bench import parse_rows
 from zstdsharp_tpu_torch.ops import device_encode as de
 from zstdsharp_tpu_torch.ops import lz_parse as lp
 from zstdsharp_tpu_torch.ops import matcher as tm
+from torch_parse_cases import DIAGONAL_CASES, diagonal_rows
 
 PRIME = 2654435761
 FULL = 0xFFFFFFFF
+WARPS = 32               # csrc/lz_parse.cu kWarps
 PARSE_KEYS = lp.PARSE_KEYS
 
 
@@ -85,17 +92,39 @@ def _highbit(v: int) -> int:
     return max(v, 1).bit_length() - 1
 
 
-def _model_lane(row, nv, S, hash_log, u64_rounds, stride_rounds, luts,
-                compact):
-    N = len(row)
-    nw = (N + 31) // 32
-    # pass 0: v32 with zeros past N
-    b = np.concatenate([row, np.zeros(3, np.uint8)]).astype(np.uint32)
-    v32 = (b[:N] | (b[1:N + 1] << 8) | (b[2:N + 2] << 16)
-           | (b[3:N + 3] << 24)).astype(np.uint32)
-    cnt = max(0, min(N, nv - 3))
+def _reach(u64_rounds, stride_rounds, n):
+    """The rounds' cap (8 u64 + 64 stride + 64 with strides), at most n."""
+    reach = 8 * u64_rounds + (64 * stride_rounds + 64 if stride_rounds
+                              else 0)
+    return min(reach, n)
 
-    # pass 1: the table walk, 32 positions a step
+
+def _common_length(row, i, c, lim):
+    """min(L, lim): L the common length of the row at i and at c < i."""
+    diff = np.nonzero(row[i:i + lim] != row[c:c + lim])[0]
+    return int(diff[0]) if len(diff) else lim
+
+
+def _compose(a, b, cap):
+    """A run's length as a function of the length x after it: a >= 0 the
+    constant a, a < 0 min(x - 1 - a, cap); a's positions before b's."""
+    if a >= 0:
+        return a
+    if b >= 0:
+        return min(b - 1 - a, cap)
+    return a + b + 1
+
+
+def _v32(row):
+    b = np.concatenate([row, np.zeros(3, np.uint8)]).astype(np.uint32)
+    N = len(row)
+    return (b[:N] | (b[1:N + 1] << 8) | (b[2:N + 2] << 16)
+            | (b[3:N + 3] << 24)).astype(np.uint32)
+
+
+def _table_walk(v32, cnt, hash_log):
+    """Pass 1: the table walk, 32 positions a step."""
+    N = len(v32)
     h = ((v32.astype(np.uint64) * PRIME) & FULL) >> (32 - hash_log)
     table = np.full(1 << hash_log, -1, np.int64)
     cand = np.full(N, -1, np.int64)
@@ -109,17 +138,68 @@ def _model_lane(row, nv, S, hash_log, u64_rounds, stride_rounds, luts,
                                        table[hs])
         leader = ~np.triu(eq, 1).any(1)
         table[hs[leader]] = base + np.nonzero(leader)[0]
+    return cand
 
-    # pass 2: validity, match length, the bitmask and the ml bytes
+
+def _derived_lengths(row, cand, cnt, cap):
+    """Pass 2's lengths min(L, cap) at every walked position with a
+    candidate (-1 elsewhere): each position's function of the length
+    after it (a diagonal's last position extends, the others step a byte),
+    composed backward over each warp's run of 32-position tiles, and the
+    runs joined by the reverse scan of their functions."""
+    N = len(row)
+    f = np.full(N, -1, np.int64)
+    for i in range(cnt):
+        c = int(cand[i])
+        cn = int(cand[i + 1]) if i + 1 < cnt else -1
+        if c < 0:
+            f[i] = 0
+        elif cn != c + 1:
+            f[i] = _common_length(row, i, c, min(cap, N - i))
+        else:
+            f[i] = 0 if row[i] != row[c] else -2
+    ntile = -(-cnt // 32)
+    tpw = -(-ntile // WARPS)
+    runs = []
+    F = np.full(N, -1, np.int64)
+    for w in range(WARPS):
+        lo, hi = min(w * tpw, ntile) * 32, min(w * tpw + tpw, ntile) * 32
+        suf = -1
+        for i in range(min(hi, cnt) - 1, lo - 1, -1):
+            suf = _compose(int(f[i]), suf, cap)
+            F[i] = suf
+        runs.append((lo, min(hi, cnt), suf))
+    out = np.full(N, -1, np.int64)
+    after = -1
+    for lo, hi, total in reversed(runs):
+        x_end = after if after >= 0 else min(-1 - after, cap)
+        g = F[lo:hi]
+        out[lo:hi] = np.where(g >= 0, g, np.minimum(x_end - 1 - g, cap))
+        after = _compose(total, after, cap)
+    out[:cnt][cand[:cnt] < 0] = -1
+    return out
+
+
+def _model_lane(row, nv, S, hash_log, u64_rounds, stride_rounds, luts,
+                compact):
+    N = len(row)
+    nw = (N + 31) // 32
+    # pass 0: v32 with zeros past N
+    v32 = _v32(row)
+    cnt = max(0, min(N, nv - 3))
+    # pass 1: the table walk, 32 positions a step
+    cand = _table_walk(v32, cnt, hash_log)
+
+    # pass 2: lengths along diagonals, validity, the bitmask
+    ln = _derived_lengths(row, cand, cnt, _reach(u64_rounds, stride_rounds,
+                                                 N))
     i = np.arange(cnt)
     c = cand[:cnt]
-    ok = (c >= 0) & (v32[np.maximum(c, 0)] == v32[:cnt])
     ml = np.zeros(N, np.int64)
-    idx = i[ok]
-    m = _match_lengths(v32, idx, c[ok], N - 1, u64_rounds, stride_rounds)
-    ml[idx] = np.minimum(np.minimum(m, N - idx), nv - idx)
+    ml[:cnt] = np.minimum(ln[:cnt], nv - i)
     valid = np.zeros(nw * 32, bool)
-    valid[idx] = ml[idx] >= 4
+    # a length of 4 or more holds the first 4 bytes equal: v32 agrees
+    valid[:cnt] = (c >= 0) & (ml[:cnt] >= 4)
     vmask = [int(w) for w in np.packbits(
         valid.reshape(nw, 32)[:, ::-1], axis=1).view(">u4")[:, 0]]
     # and its summary (bit x of summary[g]: word 32 g + x has a valid
@@ -150,8 +230,10 @@ def _model_lane(row, nv, S, hash_log, u64_rounds, stride_rounds, luts,
         w = (g << 5) + first_bit(sw)
         return (w << 5) + first_bit(vmask[w])
 
-    # the jump bytes: the next valid position at or past min(j + ml, N) in
-    # that word or the next, 255 where it is not there or too far
+    # pass 3: the jump bytes (the next valid position at or past min(j +
+    # ml, N) in that word or the next, 255 where it is not there or too
+    # far), then 32 segments walked as if a cursor entered each at its
+    # start, and the true walk across them until it meets each segment's
     jump = {}
     for j in map(int, np.nonzero(valid)[0]):
         t = min(j + int(ml[j]), N)
@@ -169,13 +251,35 @@ def _model_lane(row, nv, S, hash_log, u64_rounds, stride_rounds, luts,
                 nx = ((w + 1) << 5) + first_bit(vmask[w + 1])
         jump[j] = 255 if nx is None else min(nx - j - 4, 255)
 
-    # pass 3: the greedy walk, one jump byte a step
-    starts = []
-    j = next_valid(0)
-    while j < N and len(starts) < S:
-        starts.append(j)
+    def next_match(j):
         d = jump[j]
-        j = j + 4 + d if d < 255 else next_valid(min(j + int(ml[j]), N))
+        return j + 4 + d if d < 255 else next_valid(min(j + int(ml[j]), N))
+
+    seg = 32 * -(-nw // 32)
+    spec, exits = set(), []
+    for k in range(32):
+        s, e = min(k * seg, N), min(k * seg + seg, N)
+        j = next_valid(s)
+        while j < e:
+            spec.add(j)
+            j = next_match(j)
+        exits.append(j)
+    true, conv = set(), []
+    j = next_valid(0)
+    for k in range(32):
+        e = min(k * seg + seg, N)
+        conv.append(e)
+        while j < e:
+            if j in spec:
+                conv[k] = j
+                j = exits[k]
+                break
+            true.add(j)
+            j = next_match(j)
+    sel = np.zeros(N + 1, bool)
+    sel[[j for j in spec if j >= conv[j // seg]]] = True
+    sel[list(true)] = True
+    starts = [int(j) for j in np.nonzero(sel[:N])[0][:S]]
     mls = [int(ml[j]) for j in starts]
     nseq = len(starts)
     out = {"nseq": nseq, "lit_count": nv - sum(mls)}
@@ -357,3 +461,73 @@ def test_parse_lanes_raises_off_the_card():
         lp.parse_lanes(blocks, nv[:1], 16, 15, 8, 8, compact=False)
     with pytest.raises(ValueError):
         lp.parse_lanes(blocks, nv, 16, 25, 8, 8, compact=False)
+
+
+def test_compose_is_associative():
+    """The reverse scan may bracket the runs' functions any way."""
+    cap = 9
+    vals = list(range(-12, cap + 1))
+    for a in vals:
+        for b in vals:
+            for c in vals:
+                assert (_compose(_compose(a, b, cap), c, cap)
+                        == _compose(a, _compose(b, c, cap), cap))
+
+
+def _rows_for_lengths(n):
+    rows = [parse_rows(29, n)]
+    rows += [diagonal_rows(case, n, 3) for case in DIAGONAL_CASES]
+    return (np.concatenate([r for r, _ in rows]),
+            np.concatenate([v for _, v in rows]))
+
+
+@pytest.mark.parametrize("rounds,hash_log", [
+    ((8, 8), 15), ((16, 24), 15), ((2, 0), 12), ((0, 3), 15),
+    ((8, 8), 6)], ids=["8_8", "16_24", "no_stride", "no_u64", "collisions"])
+def test_derived_lengths_equal_rounds(rounds, hash_log):
+    """The lengths along diagonals equal the reference's rounds clipped to
+    N - i at every walked position with a candidate, on parse_rows and the
+    diagonal cases, the N - 1 read clamp included."""
+    blocks, nv = _rows_for_lengths(4096)
+    N = blocks.shape[1]
+    for row, v in zip(blocks, nv):
+        cnt = max(0, min(N, int(v) - 3))
+        v32 = _v32(row)
+        cand = _table_walk(v32, cnt, hash_log)
+        got = _derived_lengths(row, cand, cnt, _reach(*rounds, N))
+        i = np.nonzero(cand[:cnt] >= 0)[0]
+        want = np.minimum(_match_lengths(v32, i, cand[i], N - 1, *rounds),
+                          N - i)
+        assert np.array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("case", DIAGONAL_CASES)
+@pytest.mark.parametrize("what", ["phase", "blocks", "blocks_collisions"])
+def test_diagonal_cases_equal_reference(case, what):
+    """The rows where the diagonal lengths and the segmented walk have
+    their edges: the encode plane's (8, 8) phase, and (16, 24) through
+    parse_blocks_ptrjump at hash_log 15 and 8."""
+    n = 4096
+    blocks, nv = diagonal_rows(case, n, 1)
+    if what == "phase":
+        S = de.seq_budget(n)
+        want = _ref_phase(blocks, nv, S, 15)
+        _assert_equal(_port_phase(blocks, nv, S, 15), want, PHASE_KEYS,
+                      "plain")
+        _assert_equal(parse_model(blocks, nv, S, 15, 8, 8), want,
+                      PHASE_KEYS, "model")
+        return
+    hash_log = 15 if what == "blocks" else 8
+    S = n // 8
+    with jax.enable_x64(False):
+        want = {k: np.asarray(v) for k, v in ref_m.parse_blocks_ptrjump(
+            jnp.asarray(blocks), jnp.asarray(nv), hash_log, S, 16,
+            24).items()}
+    got = tm.parse_blocks_ptrjump(torch.from_numpy(blocks),
+                                  torch.from_numpy(nv), hash_log, S, 16, 24)
+    _assert_equal({k: v.numpy() for k, v in got.items()}, want, PARSE_KEYS,
+                  "plain")
+    _assert_equal(parse_model(blocks, nv, S, hash_log, 16, 24,
+                              compact=False), want, PARSE_KEYS, "model")
+    if case in ("one_byte", "periods"):
+        assert (want["mls"] == 1728).any()      # capped, chained sequences

@@ -43,38 +43,59 @@
 // MB, under 1 us at 3.35 TB/s.  The serial floor is two chains per lane,
 // far above that: the previous occurrence is a hash table of last
 // positions updated at every position in order, and the greedy walk
-// visits each selected match in turn, each step depending on the last.
-// The design keeps both chains in shared memory, the table walk in one
-// warp and the greedy walk in one thread, with everything parallel around
-// them spread over 1,024 threads; the match extension of rows of long
-// runs (up to 24 rounds of u32 loads a position) can outweigh both:
+// visits each selected match in turn.  The design keeps the table's chain
+// in one warp and takes everything else off it:
 //
-// * Pass 0 (all threads): v32 of every position into a global scratch row
-//   (L1/L2-resident), the table cleared to -1.
-// * Pass 1 (warp 0): the table walk, 32 positions a step.  Lanes with
-//   equal hashes find each other with __match_any_sync; a lane's candidate
-//   is the highest lower lane of its group, else the table; the group's
-//   highest lane writes the table.  A group of kAhead steps takes its
-//   hash groups before its table accesses and loads the next group's v32
-//   while they run, so the chain from step to step runs through the table
-//   alone.  At hash_log <= 15
-//   the table (128 KB at 15) lives in shared memory; at 16 and above in a
-//   per-lane global scratch.  Only positions that may start a match (i <
-//   nv - 3) are walked.
-// * Pass 2 (all threads): one thread a position computes valid and ml by
-//   the reference's rounds, exiting when its rounds go inactive (a round
-//   of an inactive position changes nothing).  A warp's ballot makes one
-//   word of a valid-position bitmask; ml goes to a global scratch row.  A
-//   summary bit a word (set where the word has a valid position) makes
-//   the mask two-level.  Then, one thread a valid position j, the jump
-//   byte d: the walk's next match after j is at j + 4 + d, the next valid
-//   position at or past min(j + ml, N), looked up in the bitmask's word
-//   there or the next (255: not found there, or too far for a byte).
-// * Pass 3 (one thread): the greedy walk.  Each step is one shared-memory
-//   byte load (the jump byte) and an add; a step whose byte is 255 finds
-//   its next valid position in the two-level bitmask (one __ffs in the
-//   cursor's word, else the summary, 32 words a load).  It emits at most
-//   S sequences, so the cap falls where the reference's sort truncates.
+// * The hash groups of each 32-position step (__match_any_sync, whose
+//   cost set the table walk's step when the walking warp took them) are
+//   taken by the other 31 warps, an eighth of the row ahead of the walk.
+// * The rounds' lengths are min(L, cap), L the common length of the row
+//   at i and at cand[i] within the row, cap = 8 u64_rounds (+ 64
+//   stride_rounds + 64 with strides): 640 for (8, 8), 1728 for (16, 24).
+//   Along a diagonal (cand[i + 1] == cand[i] + 1) L(i) = L(i + 1) + 1
+//   when byte i equals byte cand[i], else 0, and the cap passes through:
+//   min(L(i), cap) = min(min(L(i + 1), cap) + 1, cap).  So only the last
+//   position of a diagonal extends (over the row in shared memory, at
+//   most cap bytes); every other position costs one byte compare.  A row
+//   of long runs, which took up to 24 rounds of u32 loads at every
+//   position, takes one extension a diagonal.
+// * The greedy walk is cut into 32 segments walked at once, each as if a
+//   cursor entered it at its start; the true walk then crosses each
+//   segment only until it meets a match of that segment's walk (from
+//   there the two agree), usually after a step or two.  At worst (a walk
+//   that never meets) it is the serial walk.
+//
+// * Pass 0 (all threads): the table cleared to -1, the masks and
+//   histograms cleared, the LUTs.
+// * Pass 1: the previous occurrence.  Warps 1-31 take the 32-position
+//   steps, an eighth of the row at a time: v32 of each position into a
+//   global scratch row (L1/L2-resident), its hash and the step's groups
+//   (lanes with equal hashes), then bar.arrive on that eighth's named
+//   barrier.  Warp 0 bar.syncs there and walks the eighth, 32 positions a
+//   step: a lane's candidate is the highest lower lane of its group, else
+//   the table; the group's highest lane writes the table.  A step is its
+//   table read and write alone: kAhead steps' entries are loaded ahead and
+//   their candidates stored after them.  At hash_log <= 15 the table (128
+//   KB at 15) lives in shared memory; at 16 and above in a per-lane global
+//   scratch.  Only positions that may start a match (i < nv - 3) are
+//   walked.
+// * Pass 2 (all threads): the row's bytes into shared memory (over the
+//   table).  Each warp walks its run of 32-position tiles backward, one
+//   lane a position, extending at diagonal ends and comparing a byte
+//   elsewhere; a warp scan over the tile gives each position's length as
+//   a function of the length at the run's end (a constant, or "add k,
+//   cap"); a block scan of the runs' functions gives each run its input,
+//   then each position's length and validity (length >= 4, which holds
+//   v32[cand] == v32[i]) and its bit in the valid bitmask (a tile is a
+//   word).  A summary bit a word (set where the word has a valid
+//   position) makes the mask two-level.
+// * Pass 3: the jump byte of each valid j (all threads; the walk's next
+//   match after j is at j + 4 + d, 255: look it up in the two-level
+//   bitmask); warp 0's lanes walk the 32 segments, marking their matches;
+//   lane 0 walks the true path across them, recording where it meets
+//   each segment's walk; all threads merge the marks and rank them by one
+//   block scan: the first S are the sequences, so the cap falls where the
+//   reference's sort truncates.
 // * Pass 4 (all threads): per sequence slot the match length and offset
 //   (from the ml and cand rows), the padding, the covered bits (a shared
 //   bitmask), the three codes (shared-memory atomics) and the sum of the
@@ -83,10 +104,8 @@
 //   lit_sorted.
 //
 // Opting into more than 48 KB of shared memory happens on every launch.
-// Measured on an H100 (PERF.md section 6, chip_smoke.py phase lz_parse,
-// kernel_bench --parse-only): 0.33 ms for the encode cell's 16 KB chunk
-// of 32 lanes, against 0.46 ms for the first version of this design
-// (a warp walking in step, the table walk waiting on each step's v32).
+// Measured on an H100: PERF.md section 6 (chip_smoke.py phase lz_parse,
+// kernel_bench --parse-only, which times this source beside another).
 
 #include <algorithm>
 #include <cstdint>
@@ -107,7 +126,9 @@ constexpr uint32_t kPrime = 2654435761u;
 // 227 KB, the most a block may opt into, less the static part
 constexpr int kSmemMax = 232448 - 4096;
 constexpr int kStamps = 6;
-constexpr int kAhead = 4;  // table-walk steps whose v32 and groups go first
+constexpr int kAhead = 8;  // table-walk steps loaded ahead
+constexpr int kRowPad = 4;  // zero words past the row's last (extension)
+constexpr int kChunks = 8;  // pass 1's hand-overs, named barriers 1-8
 
 using i64 = long long;
 
@@ -115,7 +136,7 @@ struct Params {
   const uint8_t* blocks;   // [B, N]
   const int32_t* n_valid;  // [B]
   const int32_t* lut;      // ll_lut [64] then ml_lut [128]
-  int N, S, hash_log, u64_rounds, stride_rounds, nwords, region_a;
+  int N, S, hash_log, cap, nwords, region_a;
   int32_t* starts;  // [B, S]
   int32_t* mls;
   int32_t* offs;
@@ -128,8 +149,8 @@ struct Params {
   int32_t* ml_hist;     // [B, 53]
   // scratch, written and read by this launch only: plain (coherent) loads
   uint32_t* v32;  // [B, N]
-  int32_t* cand;  // [B, N]
-  int32_t* mlg;   // [B, N], ml at every valid position
+  int32_t* cand;  // [B, N]: pass 1's hash-group entries, then cand
+  int32_t* mlg;   // [B, N]: pass 2's functions, then ml where valid
   int32_t* table;  // [B, 2^hash_log] past kSharedHashLog, else null
   // null, or int64 [B, kStamps]: the SM clock (clock64) at the start and
   // after each pass, read by thread 0 (kernel_bench.parse_passes)
@@ -144,38 +165,39 @@ __device__ __forceinline__ int highbit(int v) {
   return 31 - __clz(max(v, 1));
 }
 
-// ops/common.py match_lengths for one position i with candidate j >= 0,
-// before its min(., N - i).  Rounds stop once inactive: an inactive
-// round leaves the length as it is.
-__device__ int match_length(const uint32_t* v, int i, int j, int cap,
-                            int u64_rounds, int stride_rounds) {
-  int len = 0;
-  bool active = true;
-  for (int r = 0; r < u64_rounds && active; ++r) {
-    const uint32_t x0 = v[min(i + len, cap)] ^ v[min(j + len, cap)];
-    const uint32_t x1 = v[min(i + len + 4, cap)] ^ v[min(j + len + 4, cap)];
-    len += x0 ? (ctz32(x0) >> 3) : 4 + min(ctz32(x1) >> 3, 4);
-    active = x0 == 0u && x1 == 0u;
-  }
-  if (stride_rounds) {
-    for (int r = 0; r < stride_rounds && active; ++r) {
-      bool eq = true;
+// min(L, lim): L the common length of the row at i and at c < i, lim <=
+// N - i.  16 bytes a round: four new words a side, loaded together (the
+// row has kRowPad zero words past N for the last round's reads).
+__device__ int common_length(const uint32_t* w, int i, int c, int lim) {
+  const int si = (i & 3) << 3, sc = (c & 3) << 3;
+  int wi = i >> 2, wc = c >> 2;
+  uint32_t ai = w[wi], ac = w[wc];
+  for (int k = 0; k < lim; k += 16, wi += 4, wc += 4) {
+    uint32_t bi[4], bc[4];
 #pragma unroll
-      for (int k = 0; k < 64; k += 4)
-        eq &= v[min(i + len + k, cap)] == v[min(j + len + k, cap)];
-      if (eq) len += 64;
-      active = eq;
+    for (int q = 0; q < 4; ++q) {
+      bi[q] = w[wi + 1 + q];
+      bc[q] = w[wc + 1 + q];
     }
-    active = true;  // the refinement re-arms every candidate
-    for (int r = 0; r < 8 && active; ++r) {
-      const uint32_t x0 = v[min(i + len, cap)] ^ v[min(j + len, cap)];
-      const uint32_t x1 =
-          v[min(i + len + 4, cap)] ^ v[min(j + len + 4, cap)];
-      len += x0 ? (ctz32(x0) >> 3) : 4 + min(ctz32(x1) >> 3, 4);
-      active = x0 == 0u && x1 == 0u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t x = __funnelshift_r(q ? bi[q - 1] : ai, bi[q], si) ^
+                         __funnelshift_r(q ? bc[q - 1] : ac, bc[q], sc);
+      if (x) return min(k + 4 * q + (ctz32(x) >> 3), lim);
     }
+    ai = bi[3];
+    ac = bc[3];
   }
-  return len;
+  return lim;
+}
+
+// A run of positions' length as a function of the length x after it, in
+// one int: v >= 0 is the constant v (the run holds a diagonal's end or a
+// mismatch), v < 0 is min(x - 1 - v, cap).  a's positions lie before b's.
+__device__ __forceinline__ int compose(int a, int b, int cap) {
+  if (a >= 0) return a;
+  if (b >= 0) return min(b - 1 - a, cap);
+  return a + b + 1;
 }
 
 // Sets bits [s, e) of a shared bitmask; the ranges of two calls never
@@ -203,10 +225,64 @@ __device__ __forceinline__ uint32_t lit_word(const uint32_t* cmask, int w,
   return m;
 }
 
+// The first valid position at or past pos (N: none): its word, else the
+// summary (bit x of sum[g]: word 32 g + x has a valid position).
+__device__ int next_valid(const uint32_t* vmask, const uint32_t* sum,
+                          int nw, int N, int pos) {
+  if (pos >= N) return N;
+  int w = pos >> 5;
+  const uint32_t word = vmask[w] & (kFull << (pos & 31));
+  if (word != 0u) return (w << 5) + __ffs(static_cast<int>(word)) - 1;
+  const int q = w + 1, ng = (nw + 31) >> 5;
+  int g = q >> 5;
+  uint32_t sw = q < nw ? sum[g] & (kFull << (q & 31)) : 0u;
+  while (sw == 0u && ++g < ng) sw = sum[g];
+  if (sw == 0u) return N;
+  w = (g << 5) + __ffs(static_cast<int>(sw)) - 1;
+  return (w << 5) + __ffs(static_cast<int>(vmask[w])) - 1;
+}
+
+// The exclusive prefix of each thread's `local` in thread order, and the
+// block's total.  Every thread calls it; it leaves s_scan free again.
+__device__ int block_prefix(int local, int* s_scan, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_scan[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int z = s_scan[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, z, o);
+      if (lane >= o) z += y;
+    }
+    s_scan[lane] = z;
+  }
+  __syncthreads();
+  const int excl = x - local + (warp ? s_scan[warp - 1] : 0);
+  *total = s_scan[kWarps - 1];
+  __syncthreads();
+  return excl;
+}
+
 // The SM clock at point k of lane b's launch, when the caller asked.
 __device__ __forceinline__ void stamp(const Params& p, int b, int k) {
   if (p.stamps != nullptr && threadIdx.x == 0)
     p.stamps[static_cast<i64>(b) * kStamps + k] = clock64();
+}
+
+// Named barrier `id` (1-15) of all the block's threads: warps 1-31 arrive
+// (release, no wait), warp 0 waits there (acquire).
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
 }
 
 template <bool kSharedTable>
@@ -216,20 +292,24 @@ __global__ void __launch_bounds__(kThreads, 1) parse_kernel(Params p) {
   __shared__ int s_lut[kLutLL + kLutML];
   __shared__ int s_scan[kWarps];
   __shared__ uint32_t s_sum[kMaxN / 1024];
+  __shared__ int s_exit[32], s_conv[32];  // pass 3's segments
   __shared__ int s_nseq, s_msum;
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int N = p.N, S = p.S, nw = p.nwords;
+  const int N = p.N, S = p.S, nw = p.nwords, cap = p.cap;
   const bool compact = p.lit_sorted != nullptr;
   const i64 row0 = static_cast<i64>(b) * N, seq0 = static_cast<i64>(b) * S;
   const uint8_t* row = p.blocks + row0;
   uint32_t* v32 = p.v32 + row0;
   int32_t* cand = p.cand + row0;
   int32_t* mlg = p.mlg + row0;
-  uint8_t* jump = smem;  // region A after pass 1: the walk's jump bytes
+  // region A: the table (pass 1), the row's words (pass 2), the jump
+  // bytes (pass 3), the literal words' prefix (pass 4)
+  uint32_t* roww = reinterpret_cast<uint32_t*>(smem);
   uint32_t* vmask = reinterpret_cast<uint32_t*>(smem + p.region_a);
   uint32_t* cmask = vmask + nw;
+  uint32_t* smask = cmask + nw;  // the positions the walk selects
   int32_t* table = kSharedTable
       ? reinterpret_cast<int32_t*>(smem)
       : p.table + (static_cast<i64>(b) << p.hash_log);
@@ -239,100 +319,188 @@ __global__ void __launch_bounds__(kThreads, 1) parse_kernel(Params p) {
       max(0ll, min(static_cast<i64>(N), static_cast<i64>(nv) - 3)));
 
   stamp(p, b, 0);
-  // ---- pass 0: v32, the cleared table and masks, the LUTs ----
+  // ---- pass 0: the cleared table, masks and histograms, the LUTs ----
   for (int q = tid; q < kLL + kOF + kML; q += kThreads) s_hist[q] = 0;
   if (tid == 0) s_msum = 0;
   if (compact)
     for (int q = tid; q < kLutLL + kLutML; q += kThreads) s_lut[q] = p.lut[q];
-  for (int q = tid; q < nw; q += kThreads) cmask[q] = 0u;
+  for (int q = tid; q < 3 * nw; q += kThreads) vmask[q] = 0u;
   for (int q = tid; q < (1 << p.hash_log); q += kThreads) table[q] = -1;
-  for (int i = tid; i < N; i += kThreads) {
-    uint32_t x = row[i];
-    if (i + 1 < N) x |= static_cast<uint32_t>(row[i + 1]) << 8;
-    if (i + 2 < N) x |= static_cast<uint32_t>(row[i + 2]) << 16;
-    if (i + 3 < N) x |= static_cast<uint32_t>(row[i + 3]) << 24;
-    v32[i] = x;
-  }
   __syncthreads();
   stamp(p, b, 1);
 
-  // ---- pass 1: previous occurrence, one warp, 32 positions a step ----
-  if (warp == 0) {
+  // ---- pass 1: previous occurrence; warps 1-31 take the steps' v32 and
+  // hash groups chunk by chunk while warp 0 walks the table behind them ----
+  const int spc = (nw + kChunks - 1) / kChunks;  // steps a chunk
+  if (warp > 0) {
+    // step st (32 positions): its entry in cand is h, the highest lower
+    // lane of the group plus 1 (0: none) and whether the lane is the
+    // group's highest (bit 29)
     const int shift = 32 - p.hash_log;
-    // the table's chain runs through shared memory alone: a group of
-    // kAhead steps takes its hashes' groups (__match_any_sync) before its
-    // table accesses, and loads the next group's v32 while they run
-    uint32_t vq[kAhead];
-#pragma unroll
-    for (int s = 0; s < kAhead; ++s) {
-      const int i = 32 * s + lane;
-      vq[s] = i < cnt ? v32[i] : 0u;
-    }
-    for (int base = 0; base < cnt; base += 32 * kAhead) {
-      uint32_t h[kAhead];
-      unsigned grp[kAhead];
-#pragma unroll
-      for (int s = 0; s < kAhead; ++s) {
+    for (int k = 0; k < kChunks; ++k) {
+      for (int st = k * spc + warp - 1; st < min((k + 1) * spc, nw);
+           st += kWarps - 1) {
+        const int i = st * 32 + lane;
+        uint32_t x = 0u;
+        if (i < N) {
+          x = row[i];
+          if (i + 1 < N) x |= static_cast<uint32_t>(row[i + 1]) << 8;
+          if (i + 2 < N) x |= static_cast<uint32_t>(row[i + 2]) << 16;
+          if (i + 3 < N) x |= static_cast<uint32_t>(row[i + 3]) << 24;
+          v32[i] = x;
+        }
         // a hash is below 2^hash_log, so the idle lanes' value is no hash
-        h[s] = base + 32 * s + lane < cnt ? (vq[s] * kPrime) >> shift
-                                          : kFull;
-        grp[s] = __match_any_sync(kFull, h[s]);
+        const uint32_t h = i < cnt ? (x * kPrime) >> shift : kFull;
+        const unsigned grp = __match_any_sync(kFull, h);
+        const unsigned lower = grp & ((1u << lane) - 1u);
+        if (i < cnt)
+          cand[i] = static_cast<int32_t>(
+              h |
+              (lower ? static_cast<uint32_t>(32 - __clz(lower)) << 24 : 0u) |
+              ((grp >> lane) == 1u ? 1u << 29 : 0u));
       }
+      bar_arrive(1 + k);  // chunk k's entries are out
+    }
+  } else {
+    // a step is its table read and write alone: kAhead steps' entries are
+    // loaded ahead (within the chunk) and their candidates stored after
+    // them, off the chain
+    for (int k = 0; k < kChunks; ++k) {
+      bar_sync(1 + k);
+      const int lo = k * spc * 32, hi = min((k + 1) * spc * 32, cnt);
+      int32_t eq[kAhead];
 #pragma unroll
       for (int s = 0; s < kAhead; ++s) {
-        const int i = base + 32 * (kAhead + s) + lane;
-        vq[s] = i < cnt ? v32[i] : 0u;
+        const int i = lo + 32 * s + lane;
+        eq[s] = i < hi ? cand[i] : 0;
       }
+      for (int base = lo; base < hi; base += 32 * kAhead) {
+        int32_t e[kAhead], tv[kAhead];
 #pragma unroll
-      for (int s = 0; s < kAhead; ++s) {
-        const int i = base + 32 * s + lane;
-        const bool act = i < cnt;
-        const unsigned lower = grp[s] & ((1u << lane) - 1u);
-        int c = -1;
-        if (act) c = lower ? i - lane + 31 - __clz(static_cast<int>(lower))
-                           : table[h[s]];
-        __syncwarp();
-        if (act && (grp[s] >> lane) == 1u) table[h[s]] = i;
-        __syncwarp();
-        if (act) cand[i] = c;
+        for (int s = 0; s < kAhead; ++s) {
+          e[s] = eq[s];
+          const int i = base + 32 * (kAhead + s) + lane;
+          eq[s] = i < hi ? cand[i] : 0;
+        }
+#pragma unroll
+        for (int s = 0; s < kAhead; ++s) {
+          const int i = base + 32 * s + lane;
+          const int h = e[s] & 0xffffff;
+          tv[s] = table[h];
+          __syncwarp();
+          if (i < hi && ((e[s] >> 29) & 1)) table[h] = i;
+          __syncwarp();
+        }
+#pragma unroll
+        for (int s = 0; s < kAhead; ++s) {
+          const int i = base + 32 * s + lane;
+          const int low = (e[s] >> 24) & 31;
+          if (i < hi) cand[i] = low ? i - lane + low - 1 : tv[s];
+        }
       }
     }
   }
   __syncthreads();
   stamp(p, b, 2);
 
-  // ---- pass 2: validity and match length, the valid bitmask ----
-  for (int base = warp * 32; base < nw * 32; base += kThreads) {
-    const int i = base + lane;
-    bool valid = false;
-    if (i < cnt) {
-      const int c = cand[i];
-      if (c >= 0 && v32[c] == v32[i]) {
-        int m = match_length(v32, i, c, N - 1, p.u64_rounds,
-                             p.stride_rounds);
-        m = min(min(m, N - i), nv - i);
-        if (m >= kMinMatch) {
-          valid = true;
-          mlg[i] = m;
-        }
+  // ---- pass 2: lengths along diagonals, validity, the valid bitmask ----
+  // the row as words, zero past N and kRowPad words more (v32 at 4 q is
+  // word q)
+  for (int q = tid; q < ((N + 3) >> 2) + kRowPad; q += kThreads)
+    roww[q] = 4 * q < N ? v32[4 * q] : 0u;
+  __syncthreads();
+  // each warp a run of 32-position tiles (one bitmask word each), walked
+  // backward: each position's length as a function of the length at the
+  // run's end (compose's encoding), kept in mlg until the block scan
+  const int ntile = (cnt + 31) >> 5;
+  const int tpw = (ntile + kWarps - 1) / kWarps;
+  const int t0 = min(warp * tpw, ntile), t1 = min(t0 + tpw, ntile);
+  int carry = -1;  // the identity
+  {
+    int c_next = t1 * 32 < cnt ? cand[t1 * 32] : -1;
+    // each tile's candidates are loaded one tile ahead
+    int c_ahead = t1 > t0 && (t1 - 1) * 32 + lane < cnt
+                      ? cand[(t1 - 1) * 32 + lane] : -1;
+    for (int t = t1 - 1; t >= t0; --t) {
+      const int i = t * 32 + lane;
+      const int c = c_ahead;
+      c_ahead = t > t0 ? cand[i - 32] : -1;
+      int cn = __shfl_down_sync(kFull, c, 1);
+      if (lane == 31) cn = c_next;
+      c_next = __shfl_sync(kFull, c, 0);
+      int f = -1;
+      if (i < cnt) {
+        if (c < 0)
+          f = 0;
+        else if (cn != c + 1)  // a diagonal's last position: extend
+          f = common_length(roww, i, c, min(cap, N - i));
+        else
+          f = smem[i] != smem[c] ? 0 : -2;
       }
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_down_sync(kFull, f, o);
+        if (lane + o < 32) f = compose(f, y, cap);
+      }
+      f = compose(f, carry, cap);
+      if (i < cnt) mlg[i] = f;
+      carry = __shfl_sync(kFull, f, 0);
     }
-    const unsigned bits = __ballot_sync(kFull, valid);
-    if (lane == 0) vmask[base >> 5] = bits;
+  }
+  // reverse scan of the warps' runs: the length at each run's end
+  if (lane == 0) s_scan[warp] = carry;
+  __syncthreads();
+  if (warp == 0) {
+    int z = s_scan[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_down_sync(kFull, z, o);
+      if (lane + o < 32) z = compose(z, y, cap);
+    }
+    s_scan[lane] = z;
   }
   __syncthreads();
-  // the summary: bit x of s_sum[g] is set when word 32 g + x has a valid
-  // position
+  {
+    const int after = warp + 1 < kWarps ? s_scan[warp + 1] : -1;
+    const int x_end = after >= 0 ? after : min(-1 - after, cap);
+    int c_ahead = -1, f_ahead = -1;
+    if (t0 < t1 && t0 * 32 + lane < cnt) {
+      c_ahead = cand[t0 * 32 + lane];
+      f_ahead = mlg[t0 * 32 + lane];
+    }
+    for (int t = t0; t < t1; ++t) {
+      const int i = t * 32 + lane;
+      const int c = c_ahead, f = f_ahead;
+      if (t + 1 < t1 && i + 32 < cnt) {
+        c_ahead = cand[i + 32];
+        f_ahead = mlg[i + 32];
+      }
+      bool ok = false;
+      if (i < cnt) {
+        // m >= 4 holds the first 4 bytes equal: v32[c] == v32[i]
+        const int m = min(f >= 0 ? f : min(x_end - 1 - f, cap), nv - i);
+        ok = c >= 0 && m >= kMinMatch;
+        if (ok) mlg[i] = m;
+      }
+      const unsigned bits = __ballot_sync(kFull, ok);
+      if (lane == 0) vmask[t] = bits;
+    }
+  }
+  __syncthreads();
   const int ng = (nw + 31) >> 5;
   for (int g = warp; g < ng; g += kWarps) {
     const int q = (g << 5) + lane;
     const unsigned nz = __ballot_sync(kFull, q < nw && vmask[q] != 0u);
     if (lane == 0) s_sum[g] = nz;
   }
-  // the jump byte of each valid j, in place of its ml byte: d with the
-  // next valid position at or past min(j + ml, N) at j + 4 + d (N: none),
-  // found in the word of j + ml or the next; 255 where it is not, or d
-  // would not fit
+  __syncthreads();
+  stamp(p, b, 3);
+
+  // ---- pass 3: the greedy walk, 32 segments at once, then stitched ----
+  // the jump byte of each valid j (region A, over the row): the walk's
+  // next match after j is at j + 4 + d, found in the word of min(j + ml,
+  // N) or the next (N: none); 255 where it is not, or d would not fit
+  uint8_t* jump = smem;
   for (int i = tid; i < cnt; i += kThreads) {
     if (!((vmask[i >> 5] >> (i & 31)) & 1u)) continue;
     const int t = min(i + mlg[i], N);
@@ -353,36 +521,74 @@ __global__ void __launch_bounds__(kThreads, 1) parse_kernel(Params p) {
                                           : min(nx - i - kMinMatch, 255));
   }
   __syncthreads();
-  stamp(p, b, 3);
-
-  // ---- pass 3: the greedy walk, one thread ----
+  // the next match after the match at j (N: none)
+  auto next_match = [&](int j) {
+    const int d = jump[j];
+    return d < 255 ? j + kMinMatch + d
+                   : next_valid(vmask, s_sum, nw, N, min(j + mlg[j], N));
+  };
   int32_t* starts = p.starts + seq0;
   int32_t* mls = p.mls + seq0;
   int32_t* offs = p.offs + seq0;
-  if (tid == 0) {
-    // the first valid position at or past pos (N: none), two-level
-    auto next_valid = [&](int pos) {
-      if (pos >= N) return N;
-      int w = pos >> 5;
-      const uint32_t word = vmask[w] & (kFull << (pos & 31));
-      if (word != 0u) return (w << 5) + __ffs(static_cast<int>(word)) - 1;
-      const int q = w + 1;
-      int g = q >> 5;
-      uint32_t sw = q < nw ? s_sum[g] & (kFull << (q & 31)) : 0u;
-      while (sw == 0u && ++g < ng) sw = s_sum[g];
-      if (sw == 0u) return N;
-      w = (g << 5) + __ffs(static_cast<int>(sw)) - 1;
-      return (w << 5) + __ffs(static_cast<int>(vmask[w])) - 1;
-    };
-    int k = 0;
-    int j = next_valid(0);
-    while (j < N && k < S) {
-      starts[k++] = j;
-      const int d = jump[j];
-      j = d < 255 ? j + kMinMatch + d : next_valid(min(j + mlg[j], N));
+  const int wps = (nw + 31) >> 5;  // words a segment
+  if (warp == 0) {
+    // lane k walks segment k = [s, e) from its first valid position,
+    // marking its matches in smask, as if a cursor entered it at s
+    const int s = min(lane * wps * 32, N), e = min(s + wps * 32, N);
+    int j = next_valid(vmask, s_sum, nw, N, s);
+    while (j < e) {
+      smask[j >> 5] |= 1u << (j & 31);
+      j = next_match(j);
     }
-    s_nseq = k;
-    p.nseq[b] = k;
+    s_exit[lane] = j;
+    __syncwarp();
+    // lane 0 follows the true walk: through segment k until it meets a
+    // match of lane k's walk (from there the two agree up to the
+    // segment's exit) or leaves it; its own matches go to cmask
+    if (lane == 0) {
+      int jc = next_valid(vmask, s_sum, nw, N, 0);
+      for (int k = 0; k < 32; ++k) {
+        const int ek = min((k + 1) * wps * 32, N);
+        s_conv[k] = ek;
+        while (jc < ek) {
+          if ((smask[jc >> 5] >> (jc & 31)) & 1u) {
+            s_conv[k] = jc;
+            jc = s_exit[k];
+            break;
+          }
+          cmask[jc >> 5] |= 1u << (jc & 31);
+          jc = next_match(jc);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // the walk's matches: segment k's own from its meeting point on, and
+  // the true walk's before it; then their ranks, the first S sequences
+  {
+    const int wper = (nw + kThreads - 1) / kThreads;
+    const int w0 = min(tid * wper, nw), w1 = min(w0 + wper, nw);
+    int local = 0;
+    for (int w = w0; w < w1; ++w) {
+      const int conv = s_conv[w / wps], lo = w << 5;
+      const uint32_t keep = conv <= lo ? kFull
+                          : conv >= lo + 32 ? 0u
+                          : kFull << (conv - lo);
+      const uint32_t x = (smask[w] & keep) | cmask[w];
+      smask[w] = x;
+      cmask[w] = 0u;
+      local += __popc(x);
+    }
+    int total;
+    int k = block_prefix(local, s_scan, &total);
+    for (int w = w0; w < w1 && k < S; ++w) {
+      for (uint32_t x = smask[w]; x != 0u && k < S; x &= x - 1u)
+        starts[k++] = (w << 5) + __ffs(static_cast<int>(x)) - 1;
+    }
+    if (tid == 0) {
+      s_nseq = min(total, S);
+      p.nseq[b] = s_nseq;
+    }
   }
   __syncthreads();
   stamp(p, b, 4);
@@ -431,34 +637,15 @@ __global__ void __launch_bounds__(kThreads, 1) parse_kernel(Params p) {
   const int lim = max(0, min(nv, N));
   int total = 0;
   if (compact) {
-    const int per = (nw + kThreads - 1) / kThreads;
-    const int w0 = min(tid * per, nw), w1 = min(w0 + per, nw);
+    const int per_w = (nw + kThreads - 1) / kThreads;
+    const int w0 = min(tid * per_w, nw), w1 = min(w0 + per_w, nw);
     int local = 0;
     for (int w = w0; w < w1; ++w) local += __popc(lit_word(cmask, w, lim));
-    int x = local;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) s_scan[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int z = s_scan[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, z, o);
-        if (lane >= o) z += y;
-      }
-      s_scan[lane] = z;
-    }
-    __syncthreads();
-    int excl = x - local + (warp ? s_scan[warp - 1] : 0);
+    int excl = block_prefix(local, s_scan, &total);
     for (int w = w0; w < w1; ++w) {
       wpre[w] = static_cast<uint32_t>(excl);
       excl += __popc(lit_word(cmask, w, lim));
     }
-    total = s_scan[kWarps - 1];
     __syncthreads();
     for (int q = tid; q < kLL + kOF + kML; q += kThreads) {
       const int v = s_hist[q];
@@ -519,14 +706,16 @@ extern "C" int zt_lz_parse(const void* blocks, const void* n_valid, int b,
   p.N = n;
   p.S = s;
   p.hash_log = hash_log;
-  p.u64_rounds = u64_rounds;
-  p.stride_rounds = stride_rounds;
+  // the rounds' reach; past n every length is its within-row length
+  const i64 reach = 8ll * u64_rounds +
+                    (stride_rounds ? 64ll * stride_rounds + 64 : 0ll);
+  p.cap = static_cast<int>(std::min(reach, static_cast<i64>(n)));
   p.nwords = (n + 31) / 32;
   const int table_bytes = shared_table ? 4 << hash_log : 0;
-  const int row_bytes = (n + 15) & ~15;
+  const int row_bytes = 4 * (((n + 3) >> 2) + kRowPad);
   const int word_bytes = (p.nwords * 4 + 15) & ~15;
-  p.region_a = std::max({table_bytes, row_bytes, word_bytes});
-  const int dyn = p.region_a + 2 * word_bytes;
+  p.region_a = (std::max({table_bytes, row_bytes, word_bytes}) + 15) & ~15;
+  const int dyn = p.region_a + 3 * p.nwords * 4;
   if (dyn > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   p.starts = static_cast<int32_t*>(starts);
   p.mls = static_cast<int32_t*>(mls);

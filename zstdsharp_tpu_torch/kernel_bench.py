@@ -46,8 +46,8 @@ held to.
 ``lz_corrupt`` and ``lz_corrupt_lanes`` serve the LZ executor kernel
 (``csrc/lz_exec.cu``), which chip_smoke.py and the card tests check and
 time on the calls the decode plane makes; ``capture_parse``,
-``run_parse``, ``parse_lane``, ``parse_passes``, ``parse_work`` and
-``parse_rows`` serve the encode plane's parse kernel
+``run_parse``, ``parse_lane``, ``parse_passes``, ``pass_cycles``,
+``parse_work`` and ``parse_rows`` serve the encode plane's parse kernel
 (``csrc/lz_parse.cu``) the same way, and ``capture_assemble``,
 ``run_assemble``, ``assemble_lane`` and ``assemble_work`` its assembly
 kernel (``csrc/assemble.cu``).
@@ -59,7 +59,8 @@ kernel (``csrc/assemble.cu``).
    (another source of ``zt_lz_parse``): every source built alone,
    checked against the plain version and timed in turns (CUDA events
    through the raw launcher), with the SM cycles of each pass on the
-   slowest lane.  ``--parse-only`` runs this part alone.
+   slowest lane and on the lane with the most sequences
+   (``pass_cycles``).  ``--parse-only`` runs this part alone.
 
 Prints what ``nvcc -Xptxas -v`` reports for each source built alone.
 Every time is printed beside the card's name and power limit, and the
@@ -380,30 +381,45 @@ def parse_lane(call, lane: int) -> dict:
     return c
 
 
-PARSE_PASSES = ("v32", "previous_occurrence", "match_lengths", "walk",
+PARSE_PASSES = ("setup", "previous_occurrence", "match_lengths", "selection",
                 "outputs")
+
+
+def pass_cycles(stamps: torch.Tensor, nseq: torch.Tensor) -> dict:
+    """The SM cycles of each pass (``PARSE_PASSES``) from a launch's clock
+    stamps (int64 [B, 6]) and its nseq: on the lane whose launch took
+    longest ("lane"), on the lane with the most sequences
+    ("most_sequences_lane"), and the most any lane took in each pass
+    ("max_cycles")."""
+    d = (stamps[:, 1:] - stamps[:, :-1]).cpu()
+    lane = int((stamps[:, 5] - stamps[:, 0]).argmax())
+    most = int(nseq.argmax())
+    return {"lane": lane,
+            "lane_cycles": dict(zip(PARSE_PASSES, d[lane].tolist())),
+            "most_sequences_lane": most,
+            "most_sequences": int(nseq[most]),
+            "most_sequences_cycles": dict(zip(PARSE_PASSES,
+                                              d[most].tolist())),
+            "max_cycles": dict(zip(PARSE_PASSES, d.max(0).values.tolist()))}
 
 
 def parse_passes(call) -> dict:
     """The SM cycles each pass of the parse kernel takes on a
     ``capture_parse`` record (clock64 stamps of thread 0 after each pass's
-    barrier, ``parse_lanes(stamps=)``, after one warm-up launch): on the
-    lane whose launch took longest ("lane", its cycles by pass) and the
-    most any lane took in each pass ("max").  The passes are
-    ``PARSE_PASSES``: v32 and the cleared table, the previous-occurrence
-    walk, the match extension, the greedy walk, and the outputs (offsets,
-    covered, the literal permutation, the histograms)."""
+    barrier, ``parse_lanes(stamps=)``, after one warm-up launch), as
+    ``pass_cycles`` gives them.  The passes are ``PARSE_PASSES``: the
+    set-up (the cleared table and masks; a baseline source may count v32
+    here), the previous occurrence (v32, hash groups and the table walk,
+    overlapped), the match lengths along diagonals, the selection (jump
+    bytes, the segments' walks and the stitching), and the outputs
+    (offsets, covered, the literal permutation, the histograms)."""
     blocks = call["blocks"]
     stamps = torch.zeros(blocks.shape[0], 6, dtype=torch.int64,
                          device=blocks.device)
     run_parse(call)
-    run_parse(call, lambda *a, **k: lz_parse.parse_lanes(*a, **k,
-                                                         stamps=stamps))
-    d = (stamps[:, 1:] - stamps[:, :-1]).cpu()
-    lane = int((stamps[:, 5] - stamps[:, 0]).argmax())
-    return {"lane": lane,
-            "lane_cycles": dict(zip(PARSE_PASSES, d[lane].tolist())),
-            "max_cycles": dict(zip(PARSE_PASSES, d.max(0).values.tolist()))}
+    out = run_parse(call, lambda *a, **k: lz_parse.parse_lanes(
+        *a, **k, stamps=stamps))
+    return pass_cycles(stamps, out["nseq"])
 
 
 def sm_clock_mhz() -> int:
@@ -1063,8 +1079,8 @@ def parse_ab(data: bytes, dev, others: list) -> dict:
     entry point), each built alone, checked against the plain version on
     each of ``parse_windows`` and timed in turns (the others, the kernel
     twice, the others in reverse): CUDA events over 20 calls of the raw
-    launcher, and the SM cycles of each pass on the slowest lane (clock64
-    stamps)."""
+    launcher, and the SM cycles of each pass on the slowest lane and on the
+    lane with the most sequences (clock64 stamps, ``pass_cycles``)."""
     libs, ptxas = _build_all("lz_parse", others)
     res = {"windows": {}, "ptxas": ptxas}
     order = [n for n, _ in others]
@@ -1086,18 +1102,17 @@ def parse_ab(data: bytes, dev, others: list) -> dict:
                 raise RuntimeError(f"lz_parse {wname}: {name} differs from "
                                    "plain")
             runs[name] = run
-            d = (st[:, 1:] - st[:, :-1]).cpu()
-            lane = int((st[:, 5] - st[:, 0]).argmax())
-            stamps[name] = dict(zip(PARSE_PASSES, d[lane].tolist()))
+            stamps[name] = pass_cycles(st, want["nseq"])
         for name in turns:
             row.setdefault(f"{name}_ms", []).append(event_ms(runs[name], 20))
-        row["slowest_lane_cycles"] = stamps
+        row["pass_cycles"] = stamps
         row["bound_ms"], row["bound_by"] = bound(*parse_work(call, want))
         res["windows"][wname] = row
         times = "; ".join(f"{n} ms {row[n + '_ms']}" for n in libs)
         print(f"lz_parse {wname} {row['shape']}: all equal plain; {times}; "
               f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
-              f"slowest lane's cycles by pass {stamps}")
+              f"cycles by pass on the slowest lane and on the lane with the "
+              f"most sequences {stamps}")
     res["sm_clock_mhz"] = sm_clock_mhz()
     return res
 

@@ -44,7 +44,7 @@ from .common import (hash4, match_lengths, previous_occurrence,
                      u32_at_every_byte)
 
 MIN_MATCH = 4
-MAX_N = 1 << 17          # the row, its bitmasks and the ml bytes in 227 KB
+MAX_N = 1 << 17          # the row and its three bitmasks in 227 KB
 SHARED_HASH_LOG = 15     # tables up to 128 KB live in shared memory
 MAX_HASH_LOG = 24        # past 15 the table is a [B, 2^hash_log] scratch
 PARSE_KEYS = ("starts", "mls", "offs", "nseq", "covered")
