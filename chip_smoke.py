@@ -95,7 +95,9 @@ Phases, each printed on its own line:
      wrapper's host time, the plain version's, the serial floor (the lane
      with the most sequences alone, through the wrapper and in device
      time), the bound (``kernel_bench.assemble_work``) and the 128 KB
-     chunk's time;
+     chunk's time, and the SM cycles of each of its passes on the slowest
+     lane of the 16 KB chunk and of the 128 KB chunk
+     (``kernel_bench.assemble_passes``, ``assemble_lanes(stamps=)``);
   7. encode end to end: every frame decodes byte-exact with the host tier,
      the 256 records' frames decode byte-exact through the port's decode
      plane with none routed to the host, none of the 256 records is
@@ -382,13 +384,14 @@ def _lz_phase(frames, mb_frames, big, dev, card):
                                                  execute_plain, lanes_plain)
 
     sets = _dict_sets()
-    runs = {"decode cell": lambda: dp.decode_batch_device(frames, dev),
-            "multi-block": lambda: dp.decode_batch_device(mb_frames, dev)}
+    runs = {"decode cell": lambda: dp.decode_batch_device(frames, device=dev),
+            "multi-block": lambda: dp.decode_batch_device(mb_frames,
+                                                          device=dev)}
     for name in ("json", "corpus"):
         d, dframes, _ = sets.load(name, big)
         runs[f"dictionary {name}"] = (
             lambda f=dframes, pd=parse_dictionary(d):
-            dp.decode_batch_device(f, dev, ddict=pd))
+            dp.decode_batch_device(f, device=dev, ddict=pd))
     groups, launched = {}, {}
     for name, run in runs.items():
         execute_lanes.launches = 0
@@ -487,7 +490,7 @@ def _decode_profile_phase(frames, dev, card):
     from zstdsharp_tpu_torch.decode import device_pipeline as dp
 
     events, dev_ms = _decode_profile(
-        lambda: dp.decode_batch_device(frames, dev))
+        lambda: dp.decode_batch_device(frames, device=dev))
     _check(dev_ms > 0, "the profiler saw the fused kernel")
     print(f"phase decode profile: one decode of the {len(frames)} records: "
           f"{events} device events, the lz_exec kernel {dev_ms:.4f} ms of "
@@ -511,7 +514,7 @@ def _corrupt_phase(data, dev, card):
 
     recs = [data[i * 6000:(i + 1) * 6000] for i in range(8)]
     frames = [compress(r, 9) for r in recs]
-    results, _ = dp.decode_batch_device(frames, dev, materialize=True)
+    results, _ = dp.decode_batch_device(frames, device=dev, materialize=True)
     _check(results == recs, "the unmutated batch decodes byte-exact")
     rng = random.Random(7)
     n = {"accepted": 0, "rejected": 0, "flagged": 0, "calls": 0,
@@ -530,7 +533,7 @@ def _corrupt_phase(data, dev, card):
 
         def run():
             try:
-                out["got"] = dp.decode_batch_device(batch, dev,
+                out["got"] = dp.decode_batch_device(batch, device=dev,
                                                     materialize=True)[0]
             except ZstdError as e:
                 out["error"] = e
@@ -705,7 +708,8 @@ def _lz_parse_phase(recs, extras, dev, card):
                                                   sm_clock_mhz)
     from zstdsharp_tpu_torch.ops import lz_parse as lp
 
-    calls = capture_parse(lambda: compress_batch_device(recs + extras, dev))
+    calls = capture_parse(lambda: compress_batch_device(recs + extras,
+                                                        device=dev))
     widths = sorted({c["blocks"].shape[1] for c in calls})
     _check(widths == [4 << 10, 16 << 10, 64 << 10, 128 << 10],
            f"the encode plane parses every bucket {widths}")
@@ -788,10 +792,14 @@ def _assemble_phase(recs, extras, dev, card):
     wrapper, its device time and the wrapper's host time, the plain
     version's, the serial floor (the lane with the most sequences alone)
     and the bound (``kernel_bench.assemble_work``), and the 128 KB chunk's
-    time.  Returns the kernel's JSON fields."""
+    time; and the SM cycles of each of the kernel's passes on the 16 KB
+    chunk's slowest lane and on the 128 KB chunk's lane
+    (``kernel_bench.assemble_passes``, clock stamps).  Returns the
+    kernel's JSON fields."""
     from zstdsharp_tpu_torch.encode.device_pipeline import (
         compress_batch_device)
     from zstdsharp_tpu_torch.kernel_bench import (assemble_lane,
+                                                  assemble_passes,
                                                   assemble_work, bound,
                                                   capture_assemble,
                                                   device_ms, host_ms,
@@ -799,7 +807,7 @@ def _assemble_phase(recs, extras, dev, card):
     from zstdsharp_tpu_torch.ops import assemble as asm
 
     calls = capture_assemble(lambda: compress_batch_device(recs + extras,
-                                                           dev))
+                                                           device=dev))
     widths = sorted({c["blocks"].shape[1] for c in calls})
     _check(widths == [4 << 10, 16 << 10, 64 << 10, 128 << 10],
            f"the encode plane assembles every bucket {widths}")
@@ -826,6 +834,10 @@ def _assemble_phase(recs, extras, dev, card):
     big_ms = _gpu_ms(lambda: run_assemble(big), 5)
     n_big = int(big["parsed"]["nseq"].max())
     bound_ms, bound_by = bound(*assemble_work(cell, out))
+    passes = {"chunk_16KB": assemble_passes(cell),
+              "chunk_128KB": assemble_passes(big)}
+    cycles = {k: {"lane": v["lane"], "cycles": v["lane_cycles"]}
+              for k, v in passes.items()}
     print(f"phase assemble: kernel == plain on {len(calls)} encode-plane "
           f"calls (calls by shape: {shapes}; max_abs_err {err}); encode "
           f"cell's first chunk {tuple(cell['blocks'].shape)}: kernel "
@@ -836,11 +848,14 @@ def _assemble_phase(recs, extras, dev, card):
           f"{floor_ms:.4f} ms ({floor_dev_ms:.4f} ms of device time); 128 KB "
           f"chunk {big_ms:.4f} ms (most sequences {n_big}); no single "
           f"PyTorch call computes it (CUDA events, profiler) on {card}")
+    print(f"phase assemble: SM cycles by pass (clock stamps) on the slowest "
+          f"lane of the 16 KB chunk and of the 128 KB chunk: {cycles}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "serial_floor_ms": floor_ms, "serial_floor_nseq": n_lane,
             "device_ms": dev_ms, "serial_floor_device_ms": floor_dev_ms,
-            "wrapper_host_ms": wrapper_ms, "chunk_128KB_ms": big_ms}
+            "wrapper_host_ms": wrapper_ms, "chunk_128KB_ms": big_ms,
+            "pass_cycles": cycles}
 
 
 def _encode_profile_phase(recs, dev, card):
@@ -858,13 +873,13 @@ def _encode_profile_phase(recs, dev, card):
         LANES, compress_batch_device)
     from zstdsharp_tpu_torch.ops import assemble as asm
 
-    compress_batch_device(recs, dev)
+    compress_batch_device(recs, device=dev)
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         before = asm.assemble_lanes.launches
         t = time.perf_counter()
-        compress_batch_device(recs, dev)
+        compress_batch_device(recs, device=dev)
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t) * 1e3
         launched = asm.assemble_lanes.launches - before
@@ -935,7 +950,7 @@ def _encode_phases(data, dev, card):
     # ---- the encode path, once, through the user entry point ----
     all_in = recs + extras
     _reset_counts()
-    chunks, host = compress_batch_device(all_in, dev)
+    chunks, host = compress_batch_device(all_in, device=dev)
     torch.cuda.synchronize()
     counts = _counts()
     launches = {k: counts[k] for k in ENCODE_KERNELS}
@@ -965,7 +980,7 @@ def _encode_phases(data, dev, card):
            "port's decode plane")
     _check(not dhost, f"decode planner routes {len(dhost)} frames to the "
            "host")
-    cpu_frames, _ = compress_batch_device(recs[:LANES], "cpu",
+    cpu_frames, _ = compress_batch_device(recs[:LANES], device="cpu",
                                           materialize=True)
     _check(cpu_frames == frames[:LANES],
            "the first chunk's frames equal the port's CPU run")
@@ -982,7 +997,7 @@ def _encode_phases(data, dev, card):
     payload = sum(map(len, recs))
 
     def run_encode():
-        ch, _ = compress_batch_device(recs, dev)
+        ch, _ = compress_batch_device(recs, device=dev)
         torch.cuda.synchronize()
         return ch
 
@@ -992,7 +1007,7 @@ def _encode_phases(data, dev, card):
     marg = max(pairs[1], 1e-9)
     e2e = sorted(_timed(run_encode) for _ in range(3))[1]
     stages = {}
-    compress_batch_device(recs, dev, timings=stages)
+    compress_batch_device(recs, device=dev, timings=stages)
     host_s = sorted(_timed(lambda: [compress(r, 1) for r in recs])
                     for _ in range(3))[1]
     host_size = sum(len(compress(r, 1)) for r in recs)
@@ -1182,7 +1197,7 @@ def _stream_phases(big, data, recs, frames, enc_recs, dev, card):
         launches[k] += v
     _check([decompress(f) for f in eframes] == enc_recs,
            "every record frame decodes byte-exact with the host tier")
-    _check(eframes == compress_batch_device(enc_recs, dev,
+    _check(eframes == compress_batch_device(enc_recs, device=dev,
                                             materialize=True)[0],
            "the frames equal compress_batch_device's")
     _check(tel["device_frames"] == len(enc_recs), f"telemetry {tel}")
@@ -1281,7 +1296,7 @@ def _dict_phases(big, dev, card):
             launches[k] += counts[k]
         _check(_frame_bytes(len(frames), outs, lens, host) == recs,
                f"set {name}: decoded bytes equal the records")
-        c_outs, c_lens, c_host = dp.decode_batch_device(frames, "cpu",
+        c_outs, c_lens, c_host = dp.decode_batch_device(frames, device="cpu",
                                                         ddict=pd)
         routed = [fi for fi, v in host.items() if isinstance(v, bytes)]
         c_routed = [fi for fi, v in c_host.items() if isinstance(v, bytes)]
@@ -1304,7 +1319,7 @@ def _dict_phases(big, dev, card):
         marg = max((_timed(lambda: [run() for _ in range(3)]) - _timed(run))
                    / 2, 1e-9)
         stages = {}
-        dp.decode_batch_device(frames, dev, ddict=pd, timings=stages)
+        dp.decode_batch_device(frames, device=dev, ddict=pd, timings=stages)
         with pd.native() as dd:
             _check(dd.decompress_many(frames) == recs,
                    f"set {name}: NativeDDict.decompress_many")
@@ -1545,7 +1560,8 @@ def main() -> int:
     _check(not [fi for fi in host_routed if fi < N_RECORDS],
            "no record frame is host-routed")
     _check(all(n > 0 for n in launches.values()), f"kernels launched {launches}")
-    results, stats = dp.decode_batch_device(all_frames, dev, materialize=True)
+    results, stats = dp.decode_batch_device(all_frames, device=dev,
+                                            materialize=True)
     _check(results == all_in, "materialized bytes equal the inputs")
     print(f"phase end-to-end: {len(all_frames)} frames byte-exact via "
           f"unwrap_many_device on {torch.cuda.get_device_name(0)}; host-routed"
@@ -1566,7 +1582,7 @@ def main() -> int:
     marg = max(pairs[1], 1e-9)
     e2e = sorted(_timed(run_pipeline) for _ in range(3))[1]
     stages = {}
-    dp.decode_batch_device(frames, dev, timings=stages)
+    dp.decode_batch_device(frames, device=dev, timings=stages)
     route = native.host_route()
     host_s = sorted(_timed(lambda: [decompress(f) for f in frames])
                     for _ in range(5))[2]

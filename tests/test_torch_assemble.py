@@ -2,9 +2,12 @@
 package.
 
 ``assemble_model`` is a numpy copy of ``csrc/assemble.cu``'s algorithm:
-the three FSE state chains as serial walks from the last sequence's init
-state (the emission at i is the incoming state and its width, then the
-next state), every field's width before any byte (prefix sums over the
+the three FSE state chains by segment map composition (``_chain``: the
+steps cut as the kernel's ``chain_cut`` cuts them, each segment's map
+composed over every entry state, the composites crossed from the last
+sequence's init state, each segment walked from its entry state; the
+emission at i is the incoming state and its width), every field's width
+before any byte (prefix sums over the
 sequences in emission order and over each Huffman quarter's symbols), the
 sizes and sections from those, and every field ORed into the row's u32
 words at its final bit offset after the fixed-form bytes.  It and the
@@ -29,8 +32,8 @@ from zstdsharp_tpu_torch.kernel_bench import (ASSEMBLE_ARGS, assemble_lane,
 from zstdsharp_tpu_torch.ops import assemble as asm
 from zstdsharp_tpu_torch.ops import device_encode as de
 
-from torch_assemble_cases import (assemble_call, assemble_records,
-                                  pad_records, roll_back)
+from torch_assemble_cases import (CHAIN_NSEQ, CHAIN_S, assemble_call,
+                                  assemble_records, pad_records, roll_back)
 
 M32 = 0xFFFFFFFF
 
@@ -90,6 +93,56 @@ def _walk(codes, ns, maps, nbs, init):
     return state, width, u
 
 
+def chain_cut(n):
+    """The kernel's chain_cut: (segments G, steps a segment L, segments
+    holding a step) for a chain of n steps."""
+    g = 32 if n <= 4096 else (64 if n <= 16384 else 128)
+    length = (-(-n // g) + 3) & ~3
+    return g, length, (-(-n // length) if length else 0)
+
+
+def _chain(codes, ns, maps, nbs, init):
+    """One stream's state chain as the kernel computes it: the steps i =
+    ns-2 ... 0 cut into segments (``chain_cut``), (a) each segment's map
+    composed over every entry state (all segments at once), (b) the
+    composites crossed from init[c[ns-1]], the last segment first, (c)
+    each segment walked from its entry state.  Returns (state [ns], width
+    [ns], flush), as ``_walk``."""
+    nsym, ts = maps.shape
+    c = np.minimum(np.asarray(codes[:max(ns, 0)], np.int64), nsym - 1)
+    nxt = np.clip(maps, 0, ts - 1).astype(np.int64)
+    state = np.zeros(max(ns, 0), np.int64)
+    width = np.zeros(max(ns, 0), np.int64)
+    if ns < 1:
+        return state, width, 0
+    n = ns - 1
+    _, length, used = chain_cut(n)
+    lo = np.arange(used) * length
+    hi = np.minimum(lo + length, n)
+    # (a) compose: f[j][x] = the state leaving segment j entered at x
+    f = np.tile(np.arange(ts), (used, 1))
+    for t in range(length):
+        i = hi - 1 - t
+        on = i >= lo
+        f[on] = nxt[c[i[on]][:, None], f[on]]
+    # (b) cross, the last segment first
+    u = int(np.clip(init[c[ns - 1]], 0, ts - 1))
+    entry = np.zeros(used, np.int64)
+    for j in range(used - 1, -1, -1):
+        entry[j] = u
+        u = int(f[j, u])
+    # (c) walk each segment from its entry state
+    v = entry.copy()
+    for t in range(length):
+        i = hi - 1 - t
+        on = i >= lo
+        ci = c[i[on]]
+        state[i[on]] = v[on]
+        width[i[on]] = nbs[ci, v[on]]
+        v[on] = nxt[ci, v[on]]
+    return state, width, u
+
+
 def _lane_model(c, b, t):
     """Lane b's row and out_len, as the kernel builds them."""
     blocks = c["blocks"]
@@ -121,11 +174,11 @@ def _lane_model(c, b, t):
     ofc = _highbit(ofb)
     code = {"ll": llc, "of": ofc, "ml": mlc}
 
-    # the three chains, serial walks
+    # the three chains by segment map composition
     chain = {}
     for name in asm.STREAMS:
         maps, nbs, init, _ = (a[b] for a in c["seq"][name])
-        chain[name] = _walk(code[name], ns, maps, nbs, init)
+        chain[name] = _chain(code[name], ns, maps, nbs, init)
     fl = {name: (int(c["seq"][name][3][b]) & M32) if ns_raw > 0 else 0
           for name in asm.STREAMS}
 
@@ -403,6 +456,43 @@ def test_serial_walk_equals_map_composition(name):
             width, (0, S - ns)), 0))
         assert np.array_equal(val[b].numpy()[live], ts + state[live[:ns]])
         assert int(fin[b]) == flush
+
+
+def test_chain_cases_cross_the_cut_edges():
+    """CHAIN_NSEQ hits what it names in chain_cut."""
+    cuts = {ns: chain_cut(max(ns - 1, 0)) for ns in CHAIN_NSEQ}
+    assert [cuts[ns] for ns in (4, 5, 6)] == [(32, 4, 1)] * 2 + [(32, 4, 2)]
+    assert cuts[129] == (32, 4, 32) and cuts[130] == (32, 8, 17)
+    assert cuts[4097][0] == 32 and cuts[4098][0] == 64
+    assert cuts[16385][0] == 64 and cuts[16386][0] == 128
+    assert cuts[CHAIN_S][2] <= 128
+
+
+@pytest.mark.parametrize("ns", CHAIN_NSEQ)
+@pytest.mark.parametrize("name", asm.STREAMS)
+def test_chain_model_equals_walk_and_composition(name, ns):
+    """The kernel's chain (``_chain``) gives the serial walk's states,
+    widths and flush, and ``_fse_stream_states``'s emissions and flush,
+    over a 128 KB-sized S with a fifth of the codes past the table's
+    symbols (clamped to the last)."""
+    st = de._tables()[name]
+    nsym, ts = st["maps"].shape
+    rng = np.random.default_rng(7 * ns + nsym)
+    codes = rng.integers(0, nsym, CHAIN_S)
+    hit = rng.random(CHAIN_S) < 0.2
+    codes[hit] = rng.integers(nsym, 256, int(hit.sum()))
+    got = _chain(codes, ns, st["maps"], st["nbs"], st["init"])
+    want = _walk(codes, ns, st["maps"], st["nbs"], st["init"])
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    state, width, flush = got
+    val, nb, fin = de._fse_stream_states(
+        torch.from_numpy(codes[None].astype(np.int32)),
+        torch.tensor([ns], dtype=torch.int32), st)
+    live = np.arange(CHAIN_S) <= ns - 2
+    assert np.array_equal(nb[0].numpy(), np.where(live, np.pad(
+        width, (0, CHAIN_S - ns)), 0))
+    assert np.array_equal(val[0].numpy()[live], ts + state[live[:ns]])
+    assert int(fin[0]) == flush
 
 
 def test_assemble_dispatches_plain_on_cpu(calls):

@@ -23,7 +23,8 @@ from zstdsharp_tpu_torch.decode.frame import Decompressor, decompress
 from zstdsharp_tpu_torch.encode.device_pipeline import compress_batch_device
 from zstdsharp_tpu_torch.encode.frame import compress
 from zstdsharp_tpu_torch.graft_entry import entry
-from zstdsharp_tpu_torch.kernel_bench import (ASSEMBLE_ARGS, assemble_lane,
+from zstdsharp_tpu_torch.kernel_bench import (ASSEMBLE_ARGS, ASSEMBLE_PASSES,
+                                             assemble_lane, assemble_passes,
                                              capture_assemble, capture_exec,
                                              capture_parse, exec_args,
                                              lz_corrupt, lz_corrupt_lanes,
@@ -43,7 +44,8 @@ from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
                                                    make_mesh)
 
 from torch_parse_cases import DIAGONAL_CASES, diagonal_rows
-from torch_assemble_cases import (assemble_call, assemble_records,
+from torch_assemble_cases import (CHAIN_NSEQ, assemble_call,
+                                  assemble_records, chain_case_call,
                                   pad_records, roll_back)
 
 pytestmark = pytest.mark.cuda
@@ -332,13 +334,14 @@ def test_pipeline_on_card_equals_cpu(cuda):
     big = _records(1, 300_000, 52)[0]
     frames = [compress(x, 9) for x in recs] + [compress(big, 3)]
     outs, lens, host = Decompressor().unwrap_many_device(frames, cuda)
-    c_outs, c_lens, c_host = dp.decode_batch_device(frames, "cpu")
+    c_outs, c_lens, c_host = dp.decode_batch_device(frames, device="cpu")
     assert np.array_equal(lens, c_lens)
     for o, c in zip(outs, c_outs):
         assert o.device.type == "cuda" and torch.equal(o.cpu(), c)
     assert torch.equal(host[8].cpu(), c_host[8])
     assert host[8].cpu().numpy().tobytes() == big
-    results, stats = dp.decode_batch_device(frames, cuda, materialize=True)
+    results, stats = dp.decode_batch_device(frames, device=cuda,
+                                            materialize=True)
     assert results == recs + [big]
     assert stats == {"device_frames": 9, "host_frames": 0}
 
@@ -389,7 +392,7 @@ def test_dictionary_set_on_card_equals_cpu(cuda, name):
     assert all(v.device.type == "cuda" for v in host.values())
     assert _bytes_of(len(frames), outs, lens, host) == recs
     c_outs, c_lens, c_host = dp.decode_batch_device(
-        frames, "cpu", ddict=dec._dict._parsed)
+        frames, device="cpu", ddict=dec._dict._parsed)
     assert np.array_equal(lens, c_lens) and len(outs) == len(c_outs)
     for o, c in zip(outs, c_outs):
         assert torch.equal(o.cpu(), c)
@@ -480,7 +483,7 @@ def test_lz_exec_decode_cell_chunks(cuda):
     data = _corpus(6 << 20)
     frames = [compress(data[i:i + n], 9) for i in range(0, 6 << 20, n)]
     before = ex.execute_lanes.launches
-    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, device=cuda))
     assert ex.execute_lanes.launches == before + 1
     assert len(calls) == 1 and calls[0]["O"] == n
     assert tuple(calls[0]["meta"].shape) == (256, 12)
@@ -494,7 +497,7 @@ def test_lz_exec_multi_block_rounds(cuda):
     out of the accumulator and writes [2, 131072] rows into it in place."""
     data = _corpus(1 << 20)
     frames = [compress(data[:400_000], 3), compress(data[400_000:800_000], 3)]
-    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, device=cuda))
     assert len(calls) >= 3 and {c["O"] for c in calls} == {1 << 17}
     for call in calls:
         assert call["out"] is not None and call["window"] is call["out"]
@@ -510,7 +513,7 @@ def test_lz_exec_dictionary_window_row(cuda):
 
     d, frames, _ = _dict_sets().load("corpus")
     pd = parse_dictionary(d)
-    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda,
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, device=cuda,
                                                         ddict=pd))
     assert any(c["window"].shape[1] == 1 << 17
                and c["window"].stride(0) == 0 for c in calls)
@@ -526,7 +529,7 @@ def test_lz_exec_dictionary_set_one_launch(cuda):
 
     d, frames, _ = _dict_sets().load("json")
     pd = parse_dictionary(d)
-    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda,
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, device=cuda,
                                                         ddict=pd))
     assert len(calls) == 1 and calls[0]["meta"].shape[0] == 5056
     assert not _lanes_equal_plain(calls[0]).any()
@@ -555,7 +558,7 @@ def test_lz_decode_many_lanes_one_launch(cuda):
     n = 4096
     data = _corpus(1 << 20)
     frames = [compress(data[i:i + n], 9) for i in range(0, 20 * n, n)]
-    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, device=cuda))
     call = calls[0]
     assert call["O"] == n
     for lanes in (300, 65_600):
@@ -578,7 +581,7 @@ def test_lz_decode_in_place_round_equals_gather_scatter(cuda):
     new rows and scattered back, clamped starts included."""
     data = _corpus(1 << 20)
     frames = [compress(data[:400_000], 3), compress(data[400_000:800_000], 3)]
-    calls = capture_exec(lambda: dp.decode_batch_device(frames, cuda))
+    calls = capture_exec(lambda: dp.decode_batch_device(frames, device=cuda))
     for call in calls[:3]:
         for shift in (0, -(1 << 21), 1 << 24):  # in range, clamped low/high
             c = dict(call, win_start=call["win_start"] + shift,
@@ -670,7 +673,8 @@ def test_lz_exec_flags_on_mutated_batch(cuda):
         except ZstdError:
             want = None
         try:
-            calls = capture_exec(lambda: dp.decode_batch_device(batch, cuda))
+            calls = capture_exec(lambda: dp.decode_batch_device(batch,
+                                                                device=cuda))
         except ZstdError:  # a host-routed frame the host rejects
             assert want is None
             calls = []
@@ -679,9 +683,10 @@ def test_lz_exec_flags_on_mutated_batch(cuda):
         if want is None:
             rejected += 1
             with pytest.raises(ZstdError):
-                dp.decode_batch_device(batch, cuda, materialize=True)
+                dp.decode_batch_device(batch, device=cuda, materialize=True)
         else:
-            got, _ = dp.decode_batch_device(batch, cuda, materialize=True)
+            got, _ = dp.decode_batch_device(batch, device=cuda,
+                                            materialize=True)
             assert got[fi] == want
     assert rejected > 0 and flagged > 0
 
@@ -698,7 +703,7 @@ def test_ldm_anchor_mask_on_card_equals_cpu(cuda, rate_log):
 
 
 def test_last_sequence_reading_no_bits_on_card(cuda):
-    results, stats = dp.decode_batch_device([EARLY_END_FRAME], cuda,
+    results, stats = dp.decode_batch_device([EARLY_END_FRAME], device=cuda,
                                             materialize=True)
     assert results == [decompress(EARLY_END_FRAME)]
     assert stats == {"device_frames": 1, "host_frames": 0}
@@ -848,18 +853,20 @@ def test_encode_on_card_equals_cpu(cuda):
         b"ab" * 9000, b"", _records(1, 131_072, 64)[0],
         _records(1, 200_000, 65)[0]]
     before = hg.histogram_u8.launches
-    chunks, host = compress_batch_device(recs, cuda)
+    chunks, host = compress_batch_device(recs, device=cuda)
     torch.cuda.synchronize()
     assert hg.histogram_u8.launches > before
     assert list(host) == [len(recs) - 1]
     assert all(r.device.type == "cuda" for _, r, _ in chunks)
-    frames, stats = compress_batch_device(recs, cuda, materialize=True)
-    c_frames, c_stats = compress_batch_device(recs, "cpu", materialize=True)
+    frames, stats = compress_batch_device(recs, device=cuda, materialize=True)
+    c_frames, c_stats = compress_batch_device(recs, device="cpu",
+                                              materialize=True)
     assert stats == c_stats == {"device_frames": len(recs) - 1,
                                 "host_frames": 1}
     assert frames == c_frames
     assert [decompress(f) for f in frames] == recs
-    results, _ = dp.decode_batch_device(frames[:43], cuda, materialize=True)
+    results, _ = dp.decode_batch_device(frames[:43], device=cuda,
+                                        materialize=True)
     assert results == recs[:43]
 
 
@@ -997,7 +1004,7 @@ def test_encode_and_entry_parse_through_the_kernel(cuda):
     """The encode plane and parse_block_stats launch the kernel, one
     launch a chunk, and each captured call equals the plain version."""
     recs = _records(40, 3_000, 81) + [b"ab" * 9000]
-    calls = capture_parse(lambda: compress_batch_device(recs, cuda))
+    calls = capture_parse(lambda: compress_batch_device(recs, device=cuda))
     assert [c["blocks"].shape for c in calls] == [(32, 4096), (32, 4096),
                                                   (32, 65536)]
     fn, args = entry(cuda)
@@ -1054,6 +1061,27 @@ def test_assemble_edge_lanes_equal_plain(cuda, n, huf_literals):
     _assemble_equal(call)
 
 
+@pytest.mark.parametrize("n", [1 << 12, 1 << 14, 1 << 16, 1 << 17])
+def test_assemble_chain_lengths_equal_plain(cuda, n):
+    """The lane at the bucket's sequence cap kept at every chain length of
+    CHAIN_NSEQ up to S (and S - 1), a lane each: the segment cuts' edges,
+    the cut's changes of segment count, ns = S; then 20 more launches give
+    the same bytes."""
+    blocks, nv = pad_records(assemble_records(n, n + 7), n)
+    call = assemble_call(torch.from_numpy(blocks).to(cuda),
+                         torch.from_numpy(nv).to(cuda))
+    S = call["parsed"]["starts"].shape[1]
+    ns = call["parsed"]["nseq"]
+    lane = int(ns.argmax())
+    assert int(ns[lane]) == S
+    nseqs = sorted({min(x, S) for x in CHAIN_NSEQ} | {S - 1})
+    cases = chain_case_call(call, lane, nseqs)
+    rows, lens = _assemble_equal(cases)
+    for _ in range(20):
+        again, again_lens = run_assemble(cases)
+        assert torch.equal(again, rows) and torch.equal(again_lens, lens)
+
+
 @pytest.mark.parametrize("W,WQ", [(3, 2000), (400, 5), (1, 1)])
 def test_assemble_cut_streams_equal_plain(cuda, W, WQ):
     """Capacities below the streams' lengths: halves past them dropped,
@@ -1076,6 +1104,41 @@ def test_assemble_one_lane_and_determinism(cuda):
     again, _ = run_assemble(call)
     torch.cuda.synchronize()
     assert torch.equal(again, rows)
+
+
+def test_assemble_stamps_time_every_pass(cuda):
+    """assemble_lanes(stamps=) leaves the rows as they are and gives each
+    lane's SM clock at the start and after each pass, increasing, with
+    time in the chains pass; a stamps tensor of another shape raises."""
+    blocks, nv = _parse_operands(1 << 14, 9, cuda)
+    call = assemble_call(blocks, nv)
+    rows, lens = _assemble_equal(call)
+    stamps = torch.zeros(32, asm.STAMPS, dtype=torch.int64, device=cuda)
+    got = asm.assemble_lanes(*(call[k] for k in ASSEMBLE_ARGS),
+                             stamps=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], rows) and torch.equal(got[1], lens)
+    d = stamps[:, 1:] - stamps[:, :-1]
+    assert bool((d > 0).all())
+    passes = assemble_passes(call)
+    most = passes["most_sequences_cycles"]
+    assert list(most) == list(ASSEMBLE_PASSES) and most["chains"] > 0
+    with pytest.raises(ValueError):
+        asm.assemble_lanes(*(call[k] for k in ASSEMBLE_ARGS),
+                           stamps=stamps[:, :4].contiguous())
+
+
+def test_entry_points_keyword_device_on_card(cuda):
+    """The reference's positional call with the device as a keyword: the
+    frames equal the CPU run's and decode on the card to the records."""
+    recs = _records(20, 5_000, 93) + [b"ab" * 3000]
+    frames, stats = compress_batch_device(recs, True, 15, device=cuda)
+    assert frames == compress_batch_device(recs, True, 15, device="cpu")[0]
+    assert stats["device_frames"] == len(recs)
+    results, stats = dp.decode_batch_device(frames, True, None, device=cuda)
+    assert results == recs and stats["device_frames"] == len(recs)
+    with pytest.raises(TypeError, match="device="):
+        dp.decode_batch_device(frames, cuda)
 
 
 def test_assemble_raises_off_the_card_and_on_bad_operands(cuda):
@@ -1106,7 +1169,7 @@ def test_encode_plane_assembles_through_the_kernel(cuda):
     captured call equals the plain version."""
     recs = _records(40, 3_000, 91) + [b"ab" * 9000, b""]
     before = asm.assemble_lanes.launches
-    calls = capture_assemble(lambda: compress_batch_device(recs, cuda))
+    calls = capture_assemble(lambda: compress_batch_device(recs, device=cuda))
     torch.cuda.synchronize()
     assert asm.assemble_lanes.launches == before + len(calls) == before + 3
     for c in calls:

@@ -196,16 +196,26 @@ def test_encode_frames_rows_and_lens_equal_reference(huf_literals):
 
 def test_batch_frames_equal_reference_and_decode():
     recs = _mix_4k()
-    frames, stats = compress_batch_device(recs, "cpu", materialize=True)
+    frames, stats = compress_batch_device(recs, device="cpu", materialize=True)
     want, want_stats = ref_pipe.compress_batch_device(recs, materialize=True)
     assert stats == want_stats == {"device_frames": len(recs),
                                    "host_frames": 0}
     assert frames == want
     _decodes(frames, recs)
-    results, _ = decode_batch_device(frames, "cpu", materialize=True)
+    results, _ = decode_batch_device(frames, device="cpu", materialize=True)
     assert results == recs
     # Huffman literals and fresh tables were exercised
     assert any(f[12] & 3 == 2 for f in frames if len(f) > 12)
+
+
+def test_compress_takes_the_reference_arguments():
+    """The reference's positional call, compress_batch_device(records,
+    True, 15), with the device as a keyword gives the reference's frames
+    and stats (the signatures: tests/test_torch_device_pipeline.py)."""
+    recs = _mix_4k()
+    frames, stats = compress_batch_device(recs, True, 15, device="cpu")
+    want, want_stats = ref_pipe.compress_batch_device(recs, True, 15)
+    assert frames == want and stats == want_stats
 
 
 def test_16k_bucket_frames_equal_reference():
@@ -213,7 +223,7 @@ def test_16k_bucket_frames_equal_reference():
         np.random.default_rng(4).integers(0, 256, 9000,
                                           dtype=np.uint8).tobytes(),
         b"ab" * 7000]
-    frames, stats = compress_batch_device(recs, "cpu", materialize=True)
+    frames, stats = compress_batch_device(recs, device="cpu", materialize=True)
     want, _ = ref_pipe.compress_batch_device(recs, materialize=True)
     assert stats["device_frames"] == len(recs)
     assert frames == want
@@ -222,8 +232,9 @@ def test_16k_bucket_frames_equal_reference():
 
 def test_frames_feed_the_ports_decode_plane():
     recs = _records(6, 3_500, seed=11) + [b"ab" * 1800]
-    frames, _ = compress_batch_device(recs, "cpu", materialize=True)
-    results, stats = decode_batch_device(frames, "cpu", materialize=True)
+    frames, _ = compress_batch_device(recs, device="cpu", materialize=True)
+    results, stats = decode_batch_device(frames, device="cpu",
+                                         materialize=True)
     assert stats == {"device_frames": len(recs), "host_frames": 0}
     assert results == recs
 
@@ -231,7 +242,7 @@ def test_frames_feed_the_ports_decode_plane():
 def test_oversized_records_route_to_host():
     big = _records(1, 200_000, seed=13)[0]
     small = _records(1, 3_000, seed=14)[0]
-    frames, stats = compress_batch_device([big, small], "cpu",
+    frames, stats = compress_batch_device([big, small], device="cpu",
                                           materialize=True)
     assert stats == {"device_frames": 1, "host_frames": 1}
     want, _ = ref_pipe.compress_batch_device([big, small], materialize=True)
@@ -241,7 +252,7 @@ def test_oversized_records_route_to_host():
 
 def test_rows_stay_on_the_device():
     recs = _records(3, 3_000, seed=15)
-    chunks, host = compress_batch_device(recs, torch.device("cpu"))
+    chunks, host = compress_batch_device(recs, device=torch.device("cpu"))
     assert not host
     (part, rows, lens), = chunks
     assert part == [0, 1, 2]

@@ -198,6 +198,6 @@ def test_last_sequence_reading_no_bits_is_decoded():
     assert nb == 129
     for got, exp in zip((ll, ml, of), host):
         assert np.array_equal(got[0, :129].numpy(), exp.astype(np.int32))
-    results, _ = decode_batch_device([EARLY_END_FRAME], "cpu",
+    results, _ = decode_batch_device([EARLY_END_FRAME], device="cpu",
                                      materialize=True)
     assert results == [want]

@@ -40,7 +40,7 @@ def _records(n, size, seed=7):
 
 
 def _decode(frames):
-    return dp.decode_batch_device(frames, CPU, materialize=True)
+    return dp.decode_batch_device(frames, device=CPU, materialize=True)
 
 
 def test_record_batch_bit_exact():
@@ -55,7 +55,7 @@ def test_device_resident_rows_equal_reference():
     big = _records(1, 150_000, seed=10)[0]
     frames = [compress(x, 3) for x in recs] + [
         zstandard.ZstdCompressor(level=3).compress(big)]
-    outs, lens, host = dp.decode_batch_device(frames, CPU)
+    outs, lens, host = dp.decode_batch_device(frames, device=CPU)
     r_outs, r_lens, r_host = ref.decode_batch_device(frames)
     assert np.array_equal(lens, r_lens)
     assert len(outs) == len(r_outs)
@@ -67,6 +67,38 @@ def test_device_resident_rows_equal_reference():
     assert host[6].numpy().tobytes() == big
     for k, rec in enumerate(recs):
         assert outs[0][k, :lens[k]].numpy().tobytes() == rec
+
+
+def test_entry_points_take_the_reference_arguments():
+    """Both device entry points take the reference's positional parameters
+    in its order (the device only as a keyword) and raise TypeError,
+    naming device=, on a device passed in materialize's place; the decode
+    entry gives the reference's bytes on the reference's positional call
+    (the encode entry's: tests/test_torch_device_encode.py)."""
+    import inspect
+
+    from zstdsharp_tpu.encode import device_pipeline as ref_enc
+    from zstdsharp_tpu_torch.encode import device_pipeline as enc
+
+    for port, reference in ((dp.decode_batch_device, ref.decode_batch_device),
+                            (enc.compress_batch_device,
+                             ref_enc.compress_batch_device)):
+        ref_params = list(inspect.signature(reference).parameters)
+        params = inspect.signature(port).parameters
+        assert list(params)[:len(ref_params)] == ref_params
+        for name in ("device", "timings"):
+            assert params[name].kind is inspect.Parameter.KEYWORD_ONLY
+        assert params["device"].default == "cuda"
+    recs = _records(5, 5_000, seed=9) + [b"Q" * 3000]
+    frames = [compress(x, 3) for x in recs]
+    results, stats = dp.decode_batch_device(frames, True, None, device="cpu")
+    want, want_stats = ref.decode_batch_device(frames, True, None)
+    assert results == want == recs and stats == want_stats
+    for bad in ("cpu", CPU):
+        for call in (lambda: dp.decode_batch_device(frames, bad),
+                     lambda: enc.compress_batch_device(recs, bad)):
+            with pytest.raises(TypeError, match="device="):
+                call()
 
 
 def test_mixed_block_types():
@@ -189,7 +221,7 @@ def test_frame_without_content_size_is_host_decoded():
     results, stats = _decode([frame, compress(good, 3)])
     assert results == [rec, good]
     assert stats == {"device_frames": 1, "host_frames": 1}
-    outs, lens, host = dp.decode_batch_device([frame], CPU)
+    outs, lens, host = dp.decode_batch_device([frame], device=CPU)
     assert outs == [] and host == {0: rec}
 
 
@@ -241,7 +273,8 @@ def test_dictionary_raises_not_implemented():
     outs, lens, host = dec.unwrap_many_device(frames, CPU)
     assert not host and outs[0].device == CPU
     assert _bytes_of(len(frames), outs, lens, host) == recs
-    results, stats = dp.decode_batch_device(frames, CPU, materialize=True,
+    results, stats = dp.decode_batch_device(frames, device=CPU,
+                                            materialize=True,
                                             ddict=dec._dict._parsed)
     assert results == recs
     assert stats == {"device_frames": len(recs), "host_frames": 0}
@@ -273,7 +306,7 @@ def _equal_reference(frames, dict_bytes, ref_wrong=frozenset()):
     `ref_wrong`, which the reference gets wrong (ROADMAP Queue 3) and which
     must then differ.  Returns the port's."""
     outs, lens, host = dp.decode_batch_device(
-        frames, CPU, ddict=parse_dictionary(dict_bytes))
+        frames, device=CPU, ddict=parse_dictionary(dict_bytes))
     r_outs, r_lens, r_host = ref.decode_batch_device(
         frames, ddict=r_parse_dictionary(dict_bytes))
     assert np.array_equal(lens, r_lens)
@@ -359,7 +392,8 @@ def test_treeless_literals_decode_on_device():
     assert dp.scan_eligibility(frames, parse_dictionary(d.as_bytes())) == {}
     assert set(dp.scan_eligibility(frames)) >= set(treeless)
     results, stats = dp.decode_batch_device(
-        frames, CPU, materialize=True, ddict=parse_dictionary(d.as_bytes()))
+        frames, device=CPU, materialize=True,
+        ddict=parse_dictionary(d.as_bytes()))
     assert results == recs and stats["host_frames"] == 0
 
 
@@ -441,7 +475,7 @@ def test_wrong_dictionary_raises_as_reference():
     with pytest.raises(RZstdError) as want:
         ref.decode_batch_device(frames, ddict=r_parse_dictionary(d.as_bytes()))
     with pytest.raises(ZstdError) as got:
-        dp.decode_batch_device(frames, CPU,
+        dp.decode_batch_device(frames, device=CPU,
                                ddict=parse_dictionary(d.as_bytes()))
     assert int(got.value.code) == int(want.value.code) == 32
     assert got.value.code == ZstdErrorCode.dictionary_wrong
@@ -456,7 +490,7 @@ def test_dictionary_frame_without_dictionary_raises_as_reference():
     with pytest.raises(RZstdError) as want:
         ref.decode_batch_device(frames)
     with pytest.raises(ZstdError) as got:
-        dp.decode_batch_device(frames, CPU)
+        dp.decode_batch_device(frames, device=CPU)
     assert int(got.value.code) == int(want.value.code) == 20
 
 
@@ -511,13 +545,13 @@ def test_missing_native_planner_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(dp.native, "TRACKED_LIB", tmp_path / "missing.so")
     monkeypatch.setattr(dp.native, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="native host engine"):
-        dp.decode_batch_device([compress(b"abc" * 100, 3)], CPU)
+        dp.decode_batch_device([compress(b"abc" * 100, 3)], device=CPU)
 
 
 def test_stage_timings_are_recorded():
     frames = [compress(x, 5) for x in _records(3, 4_000, seed=41)]
     timings = {}
-    dp.decode_batch_device(frames, CPU, timings=timings)
+    dp.decode_batch_device(frames, device=CPU, timings=timings)
     assert {"plan", "huf", "fse", "exec"} <= set(timings)
     assert all(v >= 0 for v in timings.values())
 
@@ -564,7 +598,7 @@ def test_mutation_case_frames_equal_reference(mutation_case):
     """The unmutated batch: the port's rows equal the reference's and the
     records, and nothing is flagged."""
     recs, frames, _ = mutation_case
-    outs, lens, host = dp.decode_batch_device(frames, CPU)
+    outs, lens, host = dp.decode_batch_device(frames, device=CPU)
     r_outs, r_lens, r_host = ref.decode_batch_device(frames)
     assert not host and not r_host and np.array_equal(lens, r_lens)
     assert len(outs) == len(r_outs) == 1
@@ -615,7 +649,7 @@ def test_flagged_frame_names_its_checks(mutation_case):
     assert ei.value.code == ZstdErrorCode.corruption_detected
     assert str(ei.value).startswith(f"frame {fi}: ")
     assert any(why in str(ei.value) for _, why in dp._FLAG_REASONS)
-    outs, lens, host = dp.decode_batch_device(batch, CPU)
+    outs, lens, host = dp.decode_batch_device(batch, device=CPU)
     assert not host and len(lens) == 8
 
 
@@ -692,5 +726,6 @@ def test_valid_frames_flag_nothing(name):
     dp._release_ops(plan.nb, None)
     assert not plan.host_routed
     assert (len(plan.mb_frames) > 0) == (name in ("corpus", "multiblock"))
-    bad = _flags_of(lambda: dp.decode_batch_device(frames, CPU, ddict=ddict))
+    bad = _flags_of(lambda: dp.decode_batch_device(frames, device=CPU,
+                                                   ddict=ddict))
     assert not bad.any()

@@ -18,9 +18,14 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _clean_env():
+    """The environment of the checks' fresh processes: no JAX settings,
+    the repository on the path, and one torch thread, so that their CPU
+    paths do not stall on a machine whose cores other test workers hold
+    (torch's threads, one a core, then wait on each other)."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
@@ -165,10 +170,12 @@ def test_cpu_paths_load_no_reference_module():
         huge = text(900_000)      # over 4 MB: routed to the host engine
         frames = [compress(x, 9) for x in recs]
         frames += [compress(multi, 3), compress(huge, 1)]
-        out, stats = decode_batch_device(frames, "cpu", materialize=True)
+        out, stats = decode_batch_device(frames, device="cpu",
+                                         materialize=True)
         assert out == recs + [multi, huge], "decode"
         assert stats == {"device_frames": 4, "host_frames": 1}, stats
-        enc, estats = compress_batch_device(recs, "cpu", materialize=True)
+        enc, estats = compress_batch_device(recs, device="cpu",
+                                            materialize=True)
         assert [decompress(f) for f in enc] == recs, "encode"
         assert estats["device_frames"] == 3, estats
         assert decompress(compress(multi, 5, checksum=True)) == multi

@@ -415,7 +415,7 @@ def test_decode_cell_rows_equal_reference():
     n = 24 << 10
     data = make_corpus(64 * n)
     frames = [compress(data[i:i + n], 9) for i in range(0, 64 * n, n)]
-    outs, lens, host = dp.decode_batch_device(frames, CPU)
+    outs, lens, host = dp.decode_batch_device(frames, device=CPU)
     r_outs, r_lens, r_host = ref.decode_batch_device(frames)
     assert not host and not r_host and np.array_equal(lens, r_lens)
     assert len(outs) == len(r_outs) == 1

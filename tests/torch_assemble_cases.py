@@ -2,8 +2,9 @@
 (the CPU, against the JAX package) and tests/test_torch_cuda.py (the card,
 against the plain version): seeded records that give the assembly its
 edge lanes, the one ``assemble`` call the encode plane makes for a chunk
-of them (``kernel_bench.capture_assemble``), and a lane rolled back to the
-predefined tables."""
+of them (``kernel_bench.capture_assemble``), a lane rolled back to the
+predefined tables, and a call whose lanes are one lane at chosen sequence
+counts (the state chains' edge lengths)."""
 
 import numpy as np
 import torch
@@ -23,6 +24,16 @@ def assemble_call(blocks: torch.Tensor, n_valid: torch.Tensor,
         blocks, n_valid, S, de.word_budget(S), 15, huf_literals))
     assert len(calls) == 1
     return calls[0]
+
+
+# the 128 KB bucket's S, and chain lengths (nseq) at the edges of the
+# kernel's cut of a chain into segments (csrc/assemble.cu chain_cut): none,
+# one and two sequences, 3 / 4 / 5 steps (a step short of, at and past one
+# 4-step segment), 32 segments of 4 steps and one step more, the changes
+# from 32 to 64 and from 64 to 128 segments, and S
+CHAIN_S = de.seq_budget(1 << 17)
+CHAIN_NSEQ = (0, 1, 2, 3, 4, 5, 6, 129, 130, 4097, 4098, 16385, 16386,
+              CHAIN_S)
 
 
 def pad_records(recs, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -81,3 +92,29 @@ def roll_back(call, lane: int) -> None:
         flush[lane] = t[name]["tlog"]
     for k in ("mode", "tbl", "tbl_len"):
         call["seq"][k][lane] = 0
+
+
+def chain_case_call(call, lane: int, nseqs) -> dict:
+    """A ``capture_assemble`` record whose lanes are copies of lane `lane`
+    of `call`, lane k keeping the first nseqs[k] of its sequences (each at
+    most the lane's own count): the same tables, literals and record, so
+    every lane is a valid operand and its chains have the chosen
+    lengths."""
+    idx = torch.full((len(nseqs),), lane, dtype=torch.long,
+                     device=call["blocks"].device)
+
+    def take(t):
+        return t[idx].contiguous()
+
+    have = int(call["parsed"]["nseq"][lane])
+    assert max(nseqs) <= have, (max(nseqs), have)
+    c = dict(call)
+    for k in ("blocks", "n_valid", "lit_sorted", "lit_count"):
+        c[k] = take(call[k])
+    c["parsed"] = {k: take(v) for k, v in call["parsed"].items()}
+    c["parsed"]["nseq"] = torch.tensor(nseqs, dtype=torch.int32,
+                                       device=idx.device)
+    c["huf"] = tuple(take(t) for t in call["huf"])
+    c["seq"] = {k: (tuple(take(t) for t in v) if isinstance(v, tuple)
+                    else take(v)) for k, v in call["seq"].items()}
+    return c

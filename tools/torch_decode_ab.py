@@ -106,7 +106,8 @@ def child(tree: Path, reps: int) -> dict:
     recs = [data[i:i + REC_SIZE] for i in range(0, 6 << 20, REC_SIZE)]
     frames = [compress(r, 9) for r in recs]
     dev = torch.device("cuda", 0)
-    results, stats = dp.decode_batch_device(frames, dev, materialize=True)
+    results, stats = dp.decode_batch_device(frames, device=dev,
+                                            materialize=True)
     if results != recs or stats["host_frames"]:
         raise RuntimeError(f"{tree}: decode not byte-exact or host-routed")
 
@@ -114,7 +115,7 @@ def child(tree: Path, reps: int) -> dict:
         if tm is None:
             Decompressor().unwrap_many_device(frames, dev)
         else:
-            dp.decode_batch_device(frames, dev, timings=tm)
+            dp.decode_batch_device(frames, device=dev, timings=tm)
         torch.cuda.synchronize()
 
     e2e, stages = _time(run, reps)
@@ -131,7 +132,7 @@ def child(tree: Path, reps: int) -> dict:
         return times
 
     def materialize():
-        dp.decode_batch_device(frames, dev, materialize=True)
+        dp.decode_batch_device(frames, device=dev, materialize=True)
 
     out = {"tree": str(tree), "card": torch.cuda.get_device_name(0),
            "e2e_ms": e2e, "stages_ms": stages,
@@ -145,14 +146,14 @@ def child(tree: Path, reps: int) -> dict:
     for name in DICT_SETS:
         d, dframes, drecs = sets.load(name)
         pd = parse_dictionary(d)
-        results, stats = dp.decode_batch_device(dframes, dev, ddict=pd,
+        results, stats = dp.decode_batch_device(dframes, device=dev, ddict=pd,
                                                 materialize=True)
         if results != drecs or stats["host_frames"]:
             raise RuntimeError(f"{tree}: set {name} not byte-exact or "
                                "host-routed")
 
         def run_set(tm):
-            dp.decode_batch_device(dframes, dev, ddict=pd, timings=tm)
+            dp.decode_batch_device(dframes, device=dev, ddict=pd, timings=tm)
             torch.cuda.synchronize()
 
         out[f"dict_{name}"] = dict(zip(("e2e_ms", "stages_ms"),

@@ -12,10 +12,15 @@ the stage times of ``compress_batch_device(timings=)`` (``parse``,
 ``tables``, ``assembly``), and the host ``compress(x, 1)`` of the same
 records.  Each turn ends with one encode under torch.profiler: wall ms,
 device events (in all and a chunk), the device's busy ms (the union of
-their intervals) and share, the parse kernel's launches and device ms
-(``csrc/lz_parse.cu``'s ``parse_kernel``; none in a checkout without
-it) and device ms by kernel name.  Checkouts run in turns, A B B A for two
-(``--rounds`` times).  Prints one JSON line per turn with the medians,
+their intervals) and share, the parse kernel's and the assembly kernel's
+launches and device ms (``csrc/lz_parse.cu``'s ``parse_kernel``,
+``csrc/assemble.cu``'s ``assemble_kernel``; none in a checkout without
+them) and device ms by kernel name.  Before the profile each turn times
+the host work of the assembly kernel's wrapper on the first chunk's
+call (``kernel_bench.host_ms`` over 200 calls, the enqueue alone; in a
+checkout whose ``kernel_bench`` has ``capture_assemble``).  Checkouts
+run in turns, A B B A for two (``--rounds`` times).  Prints one JSON line
+per turn with the medians,
 and writes every turn to ``--out``.  The frames' SHA-256 is printed too,
 so that two checkouts can be seen to write the same bytes.
 
@@ -62,12 +67,16 @@ def _profile(call) -> dict:
             e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     parse = [e for e in events if "parse_kernel" in e.name]
+    asm = [e for e in events if "assemble_kernel" in e.name]
     return {"wall_ms": wall, "device_events": len(events),
             "events_a_chunk": len(events) / (N_RECORDS // LANES),
             "device_busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall,
             "parse_launches": len(parse),
             "parse_device_ms": sum(e.time_range.elapsed_us()
                                    for e in parse) / 1e3,
+            "assemble_launches": len(asm),
+            "assemble_device_ms": sum(e.time_range.elapsed_us()
+                                      for e in asm) / 1e3,
             "device_ms_by_name": dict(top)}
 
 
@@ -84,12 +93,12 @@ def child(tree: Path, reps: int) -> dict:
     data = make_corpus(4 << 20)
     recs = [data[i:i + REC_SIZE] for i in range(0, 4 << 20, REC_SIZE)]
     dev = torch.device("cuda", 0)
-    frames, stats = compress_batch_device(recs, dev, materialize=True)
+    frames, stats = compress_batch_device(recs, device=dev, materialize=True)
     if [decompress(f) for f in frames] != recs or stats["host_frames"]:
         raise RuntimeError(f"{tree}: frames not byte-exact or host-routed")
 
     def run(tm=None):
-        compress_batch_device(recs, dev, timings=tm)
+        compress_batch_device(recs, device=dev, timings=tm)
         torch.cuda.synchronize()
 
     def ms(fn):
@@ -108,11 +117,18 @@ def child(tree: Path, reps: int) -> dict:
         for k, v in tm.items():
             stages.setdefault(k, []).append(v * 1e3)
     host = [ms(lambda: [compress(r, 1) for r in recs]) for _ in range(reps)]
+    wrapper = None
+    from zstdsharp_tpu_torch import kernel_bench
+    if hasattr(kernel_bench, "capture_assemble"):
+        cell = kernel_bench.capture_assemble(
+            lambda: compress_batch_device(recs[:LANES], device=dev))[0]
+        wrapper = kernel_bench.host_ms(
+            lambda: kernel_bench.run_assemble(cell), 200)
     return {"tree": str(tree), "card": torch.cuda.get_device_name(0),
             "frames_sha256": hashlib.sha256(b"".join(frames)).hexdigest(),
             "compressed_bytes": sum(map(len, frames)),
             "e2e_ms": e2e, "marginal_ms": marginal, "stages_ms": stages,
-            "host_ms": host,
+            "host_ms": host, "assemble_wrapper_host_ms": wrapper,
             "profile": _profile(run)}  # last: runs after a profile are slower
 
 
@@ -155,6 +171,7 @@ def main(argv=None) -> int:
             "stages_ms_median": {k: _median(v)
                                  for k, v in t["stages_ms"].items()},
             "host_ms_median": _median(t["host_ms"]),
+            "assemble_wrapper_host_ms": t["assemble_wrapper_host_ms"],
             "profile": t["profile"]}))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(turns))

@@ -137,7 +137,7 @@ def load() -> ctypes.CDLL:
         lib.zt_lz_parse.restype = i
         lib.zt_lz_parse.argtypes = [p, p, i, i, i, i, i, i] + [p] * 15
         lib.zt_assemble.restype = i
-        lib.zt_assemble.argtypes = [p] * 32 + [i] * 13 + [p]
+        lib.zt_assemble.argtypes = [p] * 32 + [i] * 13 + [p, p]
         lib.zt_assemble_scratch.restype = q
         lib.zt_assemble_scratch.argtypes = [i] * 8
         _lib = lib

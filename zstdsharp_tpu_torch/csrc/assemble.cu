@@ -20,9 +20,10 @@
 //     mlv <= 127) or highbit + 19 / + 36, ofCode = highbit(ofb);
 //   * per stream (ll, of, ml), from u = init[c[ns - 1]] and i = ns - 2
 //     down to 0: the emission at i is (TS + u, nbs[c_i][u]), then
-//     u = maps[c_i][u]; the flush is the last u (0 when ns == 0).  This is
-//     the reference's suffix composition evaluated at u_init: composition
-//     is associative, so the serial chain gives the same integers;
+//     u = maps[c_i][u]; the flush is the last u (0 when ns == 0).  The
+//     kernel gets these by the reference's own method, composing the
+//     maps of segments of the chain; composition is associative, so any
+//     cut gives the same integers;
 //   * the sequence bitstream: sequences ns - 1 down to 0, each as
 //     [of_state, ml_state, ll_state, ll_extra, ml_extra, of_extra]
 //     (states of slot ns - 1 have width 0), then the flushes [ml, of, ll]
@@ -49,32 +50,59 @@
 // and its tables (about 38 KB as uploaded), and writes its row (N + 16
 // bytes): for the encode cell's first chunk of 32 x 16 KB, with 48,318
 // sequences and 5,737 literals, about 2.3 MB, about 0.7 us at 3.35 TB/s
-// (kernel_bench.assemble_work counts it for each run's data).  The serial
-// floor is far above that: the three state chains of the lane with the
-// most sequences, each step a shared-memory load whose address depends on
-// the step before (about 2,000-2,500 steps a 16 KB lane, up to ~26,000 at
-// 128 KB).  The design keeps the chains to that one dependent load and
-// spreads everything else over 1,024 threads:
+// (kernel_bench.assemble_work counts it for each run's data).  What sets
+// its time is a lane's longest serial chain: the three FSE state chains,
+// each step a shared-memory load whose address depends on the step before
+// (about 58 cycles; 2,000-2,500 steps a 16 KB lane, up to ~26,000 at 128
+// KB).  Walked one thread a stream, as this kernel first did, they were 83 %
+// of the lane with the most sequences (143k of 173k cycles at 16 KB, 1.25M
+// of 1.49M at 128 KB; kernel_bench.assemble_passes).  The design:
 //
-// * The lane's tables go to shared memory, each stream's next state and
-//   state width packed into one u16 per (symbol, state), so a chain step
-//   is one load; the codes of eight steps are loaded before their steps.
-// * Values and codes are computed in parallel, one thread a sequence; the
-//   three chains run in three threads of three warps at once, the Huffman
-//   quarters' widths summed by the other threads meanwhile.
+// * The lane's tables go to shared memory as two u8 tables a stream, the
+//   next state and the state's width per (symbol, state).
+// * Values and codes are computed in parallel, one thread a sequence; each
+//   code also as its table row, min(c, nsym - 1) TS (u16), written into
+//   the emission array, which is free until the chains' walk.
+// * The chains by segment map composition (the reference's
+//   _fse_stream_states does it with 64-step chunks and a scan): the steps
+//   are cut into G segments (chain_cut: 32, 64 or 128 by the chain's
+//   length) of L steps, a multiple of 4.  (a) Warp w composes segments w,
+//   w + 32, ... of all three streams at once: lane x follows entry states
+//   x and x + 32, so a step is five conflict-free gathers (an add and a
+//   byte load each, the rows of four steps one u64 load) with no
+//   dependence between them; the segment's top steps down to a multiple
+//   of 4 go first, so every further four steps run without a branch.  The
+//   composite (where each entry state leaves the segment) goes to shared
+//   memory.  (b) One thread a stream crosses the G composites from the
+//   initial state: each segment's entry state and the flush.  (c) One
+//   thread a segment walks its L steps from its entry state and puts the
+//   emissions the later passes read over the rows, four a u64 store.  The
+//   serial depth falls from ns steps to about 3 ns / 32 + G + L; the
+//   composition's gathers (TS x ns a stream) are spread over all warps,
+//   and it is bound by their issue (about 300 cycles a step of all 32
+//   warps).  Measured and dropped (PERF.md): a speculative walk,
+//   each segment walked from a guessed state and stitched where the true
+//   chain meets it (the LL chain keeps paths apart for 52 steps on average
+//   at 16 KB and 123 at 128 KB, so the stitch follows most of it: 2.2-2.4x
+//   slower than the serial walk); stopping a stream's composition where
+//   its paths merge (the segment whose paths merge last sets the time);
+//   64 segments from 2,048 steps (no change).
 // * Sizes before bytes: each thread sums the widths of a contiguous run of
 //   fields (the sequences in emission order, each quarter's symbols); one
 //   block scan gives every run its bit offset and every stream its length,
 //   so every section's place in the row is known before a byte is written.
+//   The Huffman quarters' widths are summed beside the chains' walk.
 // * Each field is ORed into the row's u32 words at its final bit offset
 //   (8 section_start + pos), atomically, since runs share words; the
 //   fixed-form bytes are plain stores before them.
-// * Where the row and the sequence arrays (codes and emissions, 9 bytes a
-//   slot) fit in shared memory (the 4, 16 and 64 KB buckets) the row is
-//   built there and stored with 16-byte stores; at 128 KB both live in
-//   device memory (the row in the output, the arrays in a scratch the
-//   wrapper allocates).  Opting into more than 48 KB of shared memory
-//   happens on every launch.
+// * Where the row and the sequence arrays (codes, 3 bytes a slot, and
+//   emissions, 6) fit in shared memory (the 4, 16 and 64 KB buckets) the
+//   row is built there and stored with 16-byte stores; at 128 KB both live
+//   in device memory (the row in the output, the arrays in a scratch the
+//   wrapper allocates); the composites stay in shared memory.  Opting
+//   into more than 48 KB of shared memory happens on every launch.
+// * Optional clock stamps (int64 [B, kStamps], thread 0 after each pass's
+//   barrier) time the passes; a null pointer costs a compare.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,9 +118,13 @@ constexpr int kLutLL = 64, kLutML = 128, kBitsLL = 36, kBitsML = 53;
 constexpr int kLut = kLutLL + kLutML + kBitsLL + kBitsML;
 constexpr int kScan = 5;  // the four Huffman quarters and the sequences
 constexpr int kSeqRun = 4;
-constexpr int kStep = 8;  // chain steps whose codes are loaded together
+// the segments a chain is cut into, at most (chain_cut)
+constexpr int kMaxSeg = 128;
 // 227 KB, the most a block may opt into
 constexpr int kSmemMax = 232448;
+// clock stamps a lane: the start and the end of each of the 8 passes
+// (kernel_bench.ASSEMBLE_PASSES)
+constexpr int kStamps = 9;
 enum { kLL = 0, kOF = 1, kML = 2 };
 
 using u32 = uint32_t;
@@ -130,15 +162,31 @@ struct Params {
   int32_t* out_len;
   uint8_t* scratch;  // [B, scratch_stride] when the arrays are not shared
   i64 scratch_stride;
+  // null, or int64 [B, kStamps]: the SM clock (clock64) of thread 0 at the
+  // start and after each pass's barrier (kernel_bench.assemble_passes)
+  long long* stamps;
   int N, S, W, WQ, desc_max, tbl_max;
   bool shared_row;
 };
 
 struct Layout {
-  int tab[3], init[3], hcode, hnb, lut, scan, row, em, code, total;
+  int tab[3], init[3], hcode, hnb, lut, scan, comp, entry, row, em, code,
+      total;
 };
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// The row strides of the codes (u8) and of the emissions (u16): a
+// stream's row starts 16-byte (8-byte) aligned, and a u32 load of four
+// codes (a u64 of four emissions) never leaves its row.
+__host__ __device__ inline int code_stride(int s) { return align16(s); }
+__host__ __device__ inline int em_stride(int s) { return (s + 3) & ~3; }
+
+// Device-memory scratch bytes a lane needs where its arrays are not in
+// shared memory: the emissions (u16 [3, em_stride]), then the codes.
+__host__ __device__ inline long long scratch_bytes(int s) {
+  return align16(6 * em_stride(s)) + 3LL * code_stride(s);
+}
 
 // The shared-memory layout; the row and the sequence arrays only when
 // `shared_row`.
@@ -163,14 +211,18 @@ __host__ __device__ inline Layout make_layout(const int* nsym, const int* ts,
   o = align16(o + kLut);
   l.scan = o;  // kScan x 32 warp sums, then the three flush states
   o = align16(o + 4 * (kScan * 32 + 3));
+  l.comp = o;  // [3, kMaxSeg, kMaxTS]: each segment's composed map
+  o += 3 * kMaxSeg * kMaxTS;
+  l.entry = o;  // [3, kMaxSeg]: the state entering each segment
+  o = align16(o + 3 * kMaxSeg);
   l.row = l.em = l.code = -1;
   if (shared_row) {
     l.row = o;
     o = align16(o + n + 16);
     l.em = o;
-    o = align16(o + 6 * s);
+    o = align16(o + 6 * em_stride(s));
     l.code = o;
-    o = align16(o + 3 * s);
+    o = align16(o + 3 * code_stride(s));
   }
   l.total = o;
   return l;
@@ -279,6 +331,33 @@ __device__ __forceinline__ uint8_t row_byte(const Params& p,
   return p.shared_row ? rowb[i] : __ldcg(rowb + i);
 }
 
+// The SM clock at point k of lane b's launch, when the caller asked.
+__device__ __forceinline__ void stamp(const Params& p, int b, int k) {
+  if (p.stamps != nullptr && threadIdx.x == 0)
+    p.stamps[static_cast<i64>(b) * kStamps + k] = clock64();
+}
+
+// The chain's n steps (i = n - 1 ... 0, n = ns - 1) cut into segments:
+// G of them (32 up to 4,096 steps, 64 up to 16,384, kMaxSeg beyond) of
+// `len` steps each, a multiple of 4 (0 when n is 0); segment j takes the
+// steps [j len, min((j + 1) len, n)), and `used` segments hold any.
+__device__ __forceinline__ void chain_cut(int n, int& len, int& used) {
+  const int g = n <= 4096 ? 32 : (n <= 16384 ? 64 : kMaxSeg);
+  len = ((n + g - 1) / g + 3) & ~3;
+  used = len ? (n + len - 1) / len : 0;
+}
+
+// Entries i .. i + 3 of a stream's u16 row (i a multiple of 4), bits
+// 16 s of the word being entry i + s.
+__device__ __forceinline__ u64 row_word(const uint16_t* r, int i) {
+  return *reinterpret_cast<const u64*>(r + i);
+}
+
+template <typename T>
+__device__ __forceinline__ T pick(int k, T a, T b, T c) {
+  return k == 0 ? a : (k == 1 ? b : c);
+}
+
 // The runs of one stream of n fields: thread t takes [t k, t k + k).
 __device__ __forceinline__ void run_of(int n, int& a, int& e) {
   const int k = (n + kThreads - 1) / kThreads;
@@ -294,10 +373,12 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
   const int nsym[3] = {p.st[0].nsym, p.st[1].nsym, p.st[2].nsym};
   const int ts[3] = {p.st[0].ts, p.st[1].ts, p.st[2].ts};
   const Layout l = make_layout(nsym, ts, N, S, p.shared_row);
-  uint16_t* tab[3];
+  uint8_t* nxt[3];  // [nsym, ts]: the next state
+  uint8_t* nbt[3];  // [nsym, ts]: the state's width
   uint8_t* init[3];
   for (int k = 0; k < 3; ++k) {
-    tab[k] = reinterpret_cast<uint16_t*>(sm + l.tab[k]);
+    nxt[k] = sm + l.tab[k];
+    nbt[k] = nxt[k] + nsym[k] * ts[k];
     init[k] = sm + l.init[k];
   }
   u32* hcode = reinterpret_cast<u32*>(sm + l.hcode);
@@ -309,10 +390,15 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
   const uint8_t* ml_bits = ll_bits + kBitsLL;
   u32* scan = reinterpret_cast<u32*>(sm + l.scan);
   u32* flush_state = scan + kScan * 32;
+  uint8_t* comp = sm + l.comp;
+  uint8_t* entry = sm + l.entry;
+  const int Sc = code_stride(S), Se = em_stride(S);
   uint8_t* grow = p.rows + static_cast<i64>(b) * OUT;
   u32* row;
-  uint16_t* em;  // [3, S]: nb << 8 | the incoming state
-  uint8_t* code;  // [3, S]
+  // [3, Se]: the codes' table rows (min(c, nsym - 1) ts) until the chains
+  // pass, then its emissions (nb << 8 | the incoming state)
+  uint16_t* em;
+  uint8_t* code;  // [3, Sc]
   if (p.shared_row) {
     row = reinterpret_cast<u32*>(sm + l.row);
     em = reinterpret_cast<uint16_t*>(sm + l.em);
@@ -321,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
     row = reinterpret_cast<u32*>(grow);
     uint8_t* sc = p.scratch + b * p.scratch_stride;
     em = reinterpret_cast<uint16_t*>(sc);
-    code = sc + 6 * static_cast<i64>(S);
+    code = sc + align16(6 * Se);
   }
   uint8_t* rowb = reinterpret_cast<uint8_t*>(row);
   const i64 seq_off = static_cast<i64>(b) * S;
@@ -335,6 +421,7 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
   const int tl = p.tbl_len[b];
   const bool hok = p.h_ok[b] != 0;
   const bool huf_sizes = hok && ns_raw > 0;  // else use_huf is false
+  stamp(p, b, 0);
 
   // ---- the lane's tables into shared memory; the row cleared ----
   for (int k = 0; k < 3; ++k) {
@@ -343,7 +430,8 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
     const i64 g0 = static_cast<i64>(b) * n;
     for (int j = tid; j < n; j += kThreads) {
       const int nx = min(max(s.maps[g0 + j], 0), s.ts - 1);
-      tab[k][j] = static_cast<uint16_t>(nx | (s.nbs[g0 + j] << 8));
+      nxt[k][j] = static_cast<uint8_t>(nx);
+      nbt[k][j] = s.nbs[g0 + j];
     }
     for (int j = tid; j < s.nsym; j += kThreads)
       init[k][j] = static_cast<uint8_t>(
@@ -358,49 +446,133 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
   for (int j = tid; j < OUT / 16; j += kThreads)
     reinterpret_cast<uint4*>(row)[j] = make_uint4(0, 0, 0, 0);
   phase_barrier(p);
+  stamp(p, b, 1);
 
-  // ---- values and codes, a thread a sequence ----
+  // ---- values and codes, a thread a sequence; each code's table row ----
   for (int i = tid; i < ns; i += kThreads) {
     int ll, mlv, ofb;
     seq_values(p, seq_off, i, ll, mlv, ofb);
     const int llc = ll > 63 ? highbit(ll) + 19 : ll_lut[min(max(ll, 0), 63)];
     const int mlc =
         mlv > 127 ? highbit(mlv) + 36 : ml_lut[min(max(mlv, 0), 127)];
-    code[kLL * S + i] = static_cast<uint8_t>(llc);
-    code[kOF * S + i] = static_cast<uint8_t>(highbit(ofb));
-    code[kML * S + i] = static_cast<uint8_t>(mlc);
+    const int c[3] = {llc & 0xff, highbit(ofb), mlc & 0xff};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      code[k * Sc + i] = static_cast<uint8_t>(c[k]);
+      em[k * Se + i] = static_cast<uint16_t>(min(c[k], nsym[k] - 1) * ts[k]);
+    }
   }
   phase_barrier(p);
+  stamp(p, b, 2);
 
-  // ---- the three state chains, one thread each (warps 0-2) ----
-  if (lane == 0 && warp < 3) {
-    const int k = warp, top = nsym[k] - 1, t = ts[k];
-    const uint16_t* tb = tab[k];
-    const uint8_t* ck = code + k * S;
-    uint16_t* ek = em + k * S;
-    u32 u = 0;
-    if (ns >= 1) {
-      u = init[k][min(static_cast<int>(ck[ns - 1]), top)];
-      int i = ns - 2;
-      for (; i >= kStep - 1; i -= kStep) {
-        int c[kStep];
+  // ---- the three state chains by segment map composition ----
+  const int n_steps = max(ns - 1, 0);
+  int L, used;
+  chain_cut(n_steps, L, used);
+  // (a) compose: warp w takes segments w, w + 32, ... of all three streams;
+  // lane x follows the entry states x and x + 32 through the segment, one
+  // conflict-free gather a state and step at its code's table row (the
+  // rows of four steps a u64 word): the segment's top steps down to a
+  // multiple of 4, then four steps a word with no branch, a word ahead
+  for (int j = warp; j < used; j += kThreads / 32) {
+    const int lo = j * L, hi = min(lo + L, n_steps);
+    u32 y[3][2];
 #pragma unroll
-        for (int j = 0; j < kStep; ++j)
-          c[j] = min(static_cast<int>(ck[i - j]), top) * t;
+    for (int k = 0; k < 3; ++k) {
+      y[k][0] = lane < ts[k] ? lane : 0u;
+      y[k][1] = lane + 32 < ts[k] ? lane + 32u : 0u;
+    }
+    int g = (hi - 1) & ~3;
+    u64 r[3];
 #pragma unroll
-        for (int j = 0; j < kStep; ++j) {
-          const u32 v = tb[c[j] + u];
-          ek[i - j] = static_cast<uint16_t>((v & 0xff00u) | u);
-          u = v & 0xffu;
+    for (int k = 0; k < 3; ++k) r[k] = row_word(em + k * Se, g);
+    for (int q = hi - 1 - g; q >= 0; --q) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const uint8_t* t = nxt[k] + ((r[k] >> (16 * q)) & 0xffffu);
+        y[k][0] = t[y[k][0]];
+        if (ts[k] > 32) y[k][1] = t[y[k][1]];
+      }
+    }
+    g -= 4;
+    if (g >= lo) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) r[k] = row_word(em + k * Se, g);
+    }
+    for (; g >= lo; g -= 4) {
+      u64 nx[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        nx[k] = g - 4 >= lo ? row_word(em + k * Se, g - 4) : 0ull;
+#pragma unroll
+      for (int q = 3; q >= 0; --q) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const uint8_t* t = nxt[k] + ((r[k] >> (16 * q)) & 0xffffu);
+          y[k][0] = t[y[k][0]];
+          if (ts[k] > 32) y[k][1] = t[y[k][1]];
         }
       }
-      for (; i >= 0; --i) {
-        const u32 v = tb[min(static_cast<int>(ck[i]), top) * t + u];
-        ek[i] = static_cast<uint16_t>((v & 0xff00u) | u);
-        u = v & 0xffu;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) r[k] = nx[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      uint8_t* cm = comp + (k * kMaxSeg + j) * kMaxTS;
+      if (lane < ts[k]) cm[lane] = static_cast<uint8_t>(y[k][0]);
+      if (lane + 32 < ts[k]) cm[lane + 32] = static_cast<uint8_t>(y[k][1]);
+    }
+  }
+  __syncthreads();
+
+  // (b) cross: a thread a stream follows the composites from the initial
+  // state, the last segment first; what leaves segment 0 is the flush
+  if (lane == 0 && warp < 3) {
+    const int k = warp;
+    u32 u = 0;
+    if (ns >= 1) {
+      u = init[k][min(static_cast<int>(code[k * Sc + ns - 1]), nsym[k] - 1)];
+      for (int j = used - 1; j >= 0; --j) {
+        entry[k * kMaxSeg + j] = static_cast<uint8_t>(u);
+        u = comp[(k * kMaxSeg + j) * kMaxTS + u];
       }
     }
     flush_state[k] = u;
+  }
+  __syncthreads();
+
+  // (c) walk: a thread a segment walks its steps from its entry state and
+  // puts the emissions (nb << 8 | the incoming state) over the rows it
+  // read, four steps a u64 store (past the chain's last step, zeros)
+  if (tid < 3 * used) {
+    const int k = tid / used, j = tid - k * used;
+    const int lo = j * L, hi = min(lo + L, n_steps);
+    const uint8_t* nx_k = pick(k, nxt[0], nxt[1], nxt[2]);
+    const uint8_t* nb_k = pick(k, nbt[0], nbt[1], nbt[2]);
+    uint16_t* ek = em + k * Se;
+    u32 u = entry[k * kMaxSeg + j];
+    int g = (hi - 1) & ~3;
+    u64 r = row_word(ek, g), out = 0;
+    for (int q = hi - 1 - g; q >= 0; --q) {
+      const int at = static_cast<int>((r >> (16 * q)) & 0xffffu) + u;
+      out |= static_cast<u64>((nb_k[at] << 8) | u) << (16 * q);
+      u = nx_k[at];
+    }
+    *reinterpret_cast<u64*>(ek + g) = out;
+    g -= 4;
+    r = g >= lo ? row_word(ek, g) : 0ull;
+    for (; g >= lo; g -= 4) {
+      const u64 nx = g - 4 >= lo ? row_word(ek, g - 4) : 0ull;
+      out = 0;
+#pragma unroll
+      for (int q = 3; q >= 0; --q) {
+        const int at = static_cast<int>((r >> (16 * q)) & 0xffffu) + u;
+        out |= static_cast<u64>((nb_k[at] << 8) | u) << (16 * q);
+        u = nx_k[at];
+      }
+      *reinterpret_cast<u64*>(ek + g) = out;
+      r = nx;
+    }
   }
 
   // ---- the Huffman quarters' widths, a run of symbols a thread ----
@@ -422,14 +594,15 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
     }
   }
   phase_barrier(p);
+  stamp(p, b, 3);
 
   // ---- the sequences' widths, a run of sequences a thread ----
-  const uint8_t* c_ll = code + kLL * S;
-  const uint8_t* c_of = code + kOF * S;
-  const uint8_t* c_ml = code + kML * S;
-  const uint16_t* e_ll = em + kLL * S;
-  const uint16_t* e_of = em + kOF * S;
-  const uint16_t* e_ml = em + kML * S;
+  const uint8_t* c_ll = code + kLL * Sc;
+  const uint8_t* c_of = code + kOF * Sc;
+  const uint8_t* c_ml = code + kML * Sc;
+  const uint16_t* e_ll = em + kLL * Se;
+  const uint16_t* e_of = em + kOF * Se;
+  const uint16_t* e_ml = em + kML * Se;
   int sa, se;
   run_of(ns, sa, se);
   for (int e = sa; e < se; ++e) {
@@ -441,6 +614,7 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
   }
   u32 excl[kScan], total[kScan];
   block_scan(part, excl, total, scan);
+  stamp(p, b, 4);
 
   // ---- sizes, before any byte is written ----
   u32 fl[3];
@@ -516,6 +690,7 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
       put_byte(rowb, OUT, 15 + lit_sec + k, t[min(k, p.tbl_max - 1)]);
   }
   phase_barrier(p);
+  stamp(p, b, 5);
 
   // ---- the bitstreams, each field at its final bit offset ----
   if (!use_raw) {
@@ -582,6 +757,7 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
     }
   }
   phase_barrier(p);
+  stamp(p, b, 6);
 
   // ---- a stream cut at its capacity repeats its last kept byte ----
   if (!use_raw) {
@@ -607,6 +783,7 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
     }
   }
   phase_barrier(p);
+  stamp(p, b, 7);
 
   // ---- the row out, every byte at or past out_len zero ----
   const i64 keep = clamp64(out_len, 0, OUT);
@@ -625,6 +802,10 @@ __global__ void __launch_bounds__(kThreads, 1) assemble_kernel(Params p) {
     }
     reinterpret_cast<uint4*>(grow)[c] = v;
   }
+  if (p.stamps != nullptr) {
+    __syncthreads();
+    stamp(p, b, 8);
+  }
 }
 
 bool shared_fits(const int* nsym, const int* ts, int n, int s) {
@@ -634,17 +815,20 @@ bool shared_fits(const int* nsym, const int* ts, int n, int s) {
 }  // namespace
 
 // Scratch bytes a lane needs in device memory: 0 where its row and
-// sequence arrays fit in shared memory, else the arrays' 9 bytes a slot,
-// rounded up to 16.
+// sequence arrays fit in shared memory, else the arrays' (scratch_bytes).
 extern "C" long long zt_assemble_scratch(int n, int s, int nsym_ll,
                                          int ts_ll, int nsym_of, int ts_of,
                                          int nsym_ml, int ts_ml) {
   const int nsym[3] = {nsym_ll, nsym_of, nsym_ml};
   const int ts[3] = {ts_ll, ts_of, ts_ml};
   if (shared_fits(nsym, ts, n, s)) return 0;
-  return (9LL * s + 15) & ~15LL;
+  return scratch_bytes(s);
 }
 
+// Assemble every lane of a chunk (the operands as ops/assemble.py
+// assemble_lanes passes them); scratch as zt_assemble_scratch sizes it,
+// null when that is 0.  stamps: null, or int64 [b, kStamps] for the SM
+// clock at the start and after each pass.  Returns a cudaError_t.
 extern "C" int zt_assemble(
     const void* blocks, const void* n_valid, const void* starts,
     const void* mls, const void* offs, const void* nseq,
@@ -658,7 +842,7 @@ extern "C" int zt_assemble(
     const void* tbl_len, const void* lut, void* rows, void* out_len,
     void* scratch, int b, int n, int s, int w, int wq, int desc_max,
     int tbl_max, int nsym_ll, int ts_ll, int nsym_of, int ts_of,
-    int nsym_ml, int ts_ml, void* stream) {
+    int nsym_ml, int ts_ml, void* stamps, void* stream) {
   if (b <= 0) return 0;
   const int nsym[3] = {nsym_ll, nsym_of, nsym_ml};
   const int ts[3] = {ts_ll, ts_of, ts_ml};
@@ -700,6 +884,7 @@ extern "C" int zt_assemble(
   p.rows = static_cast<uint8_t*>(rows);
   p.out_len = static_cast<int32_t*>(out_len);
   p.scratch = static_cast<uint8_t*>(scratch);
+  p.stamps = static_cast<long long*>(stamps);
   p.N = n;
   p.S = s;
   p.W = w;
@@ -709,7 +894,7 @@ extern "C" int zt_assemble(
   p.shared_row = shared_fits(nsym, ts, n, s);
   if (!p.shared_row) {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    p.scratch_stride = (9LL * s + 15) & ~15LL;
+    p.scratch_stride = scratch_bytes(s);
   }
   const int dyn = make_layout(nsym, ts, n, s, p.shared_row).total;
   const auto st = static_cast<cudaStream_t>(stream);

@@ -1,12 +1,13 @@
 """End-to-end frame decode on a torch device (counterpart of
 zstdsharp_tpu/decode/device_pipeline.py).
 
-``decode_batch_device(frames, device)`` decodes a batch of zstd frames on
-`device`: Huffman literal sections through ``ops.device_huf``, sequence
-sections through ``ops.device_fse`` (hand-written CUDA kernels on a GPU,
-their plain torch versions on the CPU), literal assembly in torch and LZ
-execution through ``ops.execseq.execute`` (a hand-written CUDA kernel on
-a GPU, its plain torch version on the CPU).  Decoded rows stay on the
+``decode_batch_device(frames, device=device)`` decodes a batch of zstd
+frames on `device`: Huffman literal sections through ``ops.device_huf``,
+sequence sections through ``ops.device_fse`` (hand-written CUDA kernels on
+a GPU, their plain torch versions on the CPU), then the literal assembly
+and the LZ execution of every lane in one launch of
+``ops.execseq.execute_lanes`` (``csrc/lz_exec.cu``) on a GPU, through its
+plain version ``lanes_plain`` on the CPU.  Decoded rows stay on the
 device.
 
 Corrupt input.  Besides the rows, the executor flags each lane whose
@@ -61,7 +62,7 @@ from ..entropy import huffman
 from ..errors import ZstdError, ZstdErrorCode
 from ..ops import device_fse as df
 from ..ops import device_huf as dh
-from ..ops._launch import resolve_device
+from ..ops._launch import check_flag, resolve_device
 from ..ops.execseq import LaneSources, execute, execute_lanes, lanes_plain
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
@@ -880,11 +881,13 @@ def _window_rows(tail: bytes, B: int, device) -> torch.Tensor:
     return row.to(device).expand(B, W)
 
 
-def decode_batch_device(frames, device="cuda", materialize: bool = False,
-                        ddict=None, timings: dict | None = None):
+def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
+                        device="cuda", timings: dict | None = None):
     """Decode a batch of frames on `device` (a torch device or its name;
     the card unless the caller names another, and without a card the
-    default raises).
+    default raises).  The positional parameters are the reference's, in
+    its order; `device` and `timings` are keywords only, and a device
+    passed in `materialize`'s place raises TypeError.
 
     Returns (outputs, lengths, host_results): outputs is a list of
     per-exec-chunk uint8 tensors [EXEC_LANES, O] on `device` whose rows map
@@ -906,6 +909,7 @@ def decode_batch_device(frames, device="cuda", materialize: bool = False,
     stage and the stage's wall seconds are stored under "plan", "host"
     (host-routed frames), "huf", "fse", "exec" and "mb_exec".
     """
+    check_flag("materialize", materialize)
     device = resolve_device(device)
     clock = [time.perf_counter()]
 

@@ -553,7 +553,7 @@ class Decompressor:
         from .device_pipeline import decode_batch_device
 
         dd = self._dict._parsed if self._dict is not None else None
-        return decode_batch_device(frames, device, ddict=dd)
+        return decode_batch_device(frames, device=device, ddict=dd)
 
     def try_unwrap(self, src: bytes, max_decompressed_size: int) -> tuple[bool, bytes]:
         """TryUnwrap:96 — returns (ok, data) instead of raising on size."""

@@ -1,7 +1,7 @@
 """End-to-end batch compression on a torch device (counterpart of
 zstdsharp_tpu/encode/device_pipeline.py).
 
-``compress_batch_device(records, device)`` compresses a batch of byte
+``compress_batch_device(records, device=device)`` compresses a batch of byte
 records on `device`: greedy parse, literal and code histograms (the byte
 histogram is the hand-written CUDA kernel on a GPU), FSE sequence coding,
 Huffman literals, bit packing and frame assembly run there, with one host
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops._launch import resolve_device
+from ..ops._launch import check_flag, resolve_device
 from ..ops.device_encode import encode_frames_device, seq_budget, word_budget
 from .frame import compress
 
@@ -36,11 +36,14 @@ def _bucket(n: int) -> int:
     return -1
 
 
-def compress_batch_device(records, device="cuda", materialize: bool = False,
-                          hash_log: int = 15, timings: dict | None = None):
+def compress_batch_device(records, materialize: bool = False,
+                          hash_log: int = 15, *, device="cuda",
+                          timings: dict | None = None):
     """Compress a batch of records on `device` (a torch device or its
     name; the card unless the caller names another, and without a card
-    the default raises).
+    the default raises).  The positional parameters are the reference's,
+    in its order; `device` and `timings` are keywords only, and a device
+    passed in `materialize`'s place raises TypeError.
 
     Returns (chunks, host_results): chunks is a list of (record_indices,
     rows [LANES, N+16] uint8, lens [LANES] int32), both tensors on
@@ -51,6 +54,7 @@ def compress_batch_device(records, device="cuda", materialize: bool = False,
     timings: when a dict is given, each phase's wall seconds are added
     under "parse", "tables" and "assembly" (``encode_frames_device``).
     """
+    check_flag("materialize", materialize)
     device = resolve_device(device)
     host_results = {}
     by_bucket: dict = {}

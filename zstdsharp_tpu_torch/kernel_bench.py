@@ -6,6 +6,8 @@ held to.
                                                [--fse-baseline FILE.cu]
                                                [--parse-baseline FILE.cu]
                                                [--parse-only]
+                                               [--assemble-baseline FILE.cu]
+                                               [--assemble-only]
                                                [--out FILE.json]
 
 1. The histogram kernel (``csrc/histogram.cu``) on every shape the main
@@ -49,8 +51,8 @@ time on the calls the decode plane makes; ``capture_parse``,
 ``run_parse``, ``parse_lane``, ``parse_passes``, ``pass_cycles``,
 ``parse_work`` and ``parse_rows`` serve the encode plane's parse kernel
 (``csrc/lz_parse.cu``) the same way, and ``capture_assemble``,
-``run_assemble``, ``assemble_lane`` and ``assemble_work`` its assembly
-kernel (``csrc/assemble.cu``).
+``run_assemble``, ``assemble_lane``, ``assemble_passes`` and
+``assemble_work`` its assembly kernel (``csrc/assemble.cu``).
 
 3. The parse kernel (``csrc/lz_parse.cu``) on the main path's calls of
    ``lz_parse.parse_lanes`` (``parse_windows``: the encode cell's first
@@ -61,6 +63,16 @@ kernel (``csrc/assemble.cu``).
    through the raw launcher), with the SM cycles of each pass on the
    slowest lane and on the lane with the most sequences
    (``pass_cycles``).  ``--parse-only`` runs this part alone.
+4. The assembly kernel (``csrc/assemble.cu``) on the main path's calls of
+   ``assemble.assemble`` (``assemble_windows``: the encode cell's eight
+   chunks [32, 16384] together, its first chunk, a 128 KB bucket's chunk
+   and the first chunk's lane with the most sequences alone), and each
+   ``--assemble-baseline`` (another source of ``zt_assemble``): every
+   source built alone, checked against the plain version on every call
+   and timed in turns (CUDA events through the raw launcher, and the
+   profiler's device time), with the SM cycles of each pass
+   (``assemble_passes``' passes, ``pass_cycles``).  ``--assemble-only``
+   runs this part alone; ``--parse-only`` leaves it out.
 
 Prints what ``nvcc -Xptxas -v`` reports for each source built alone.
 Every time is printed beside the card's name and power limit, and the
@@ -385,22 +397,22 @@ PARSE_PASSES = ("setup", "previous_occurrence", "match_lengths", "selection",
                 "outputs")
 
 
-def pass_cycles(stamps: torch.Tensor, nseq: torch.Tensor) -> dict:
-    """The SM cycles of each pass (``PARSE_PASSES``) from a launch's clock
-    stamps (int64 [B, 6]) and its nseq: on the lane whose launch took
-    longest ("lane"), on the lane with the most sequences
-    ("most_sequences_lane"), and the most any lane took in each pass
-    ("max_cycles")."""
+def pass_cycles(stamps: torch.Tensor, nseq: torch.Tensor,
+                passes: tuple = PARSE_PASSES) -> dict:
+    """The SM cycles of each pass (`passes`, one fewer than the stamps a
+    lane) from a launch's clock stamps (int64 [B, len(passes) + 1]) and
+    its nseq: on the lane whose launch took longest ("lane"), on the lane
+    with the most sequences ("most_sequences_lane"), and the most any lane
+    took in each pass ("max_cycles")."""
     d = (stamps[:, 1:] - stamps[:, :-1]).cpu()
-    lane = int((stamps[:, 5] - stamps[:, 0]).argmax())
+    lane = int((stamps[:, -1] - stamps[:, 0]).argmax())
     most = int(nseq.argmax())
     return {"lane": lane,
-            "lane_cycles": dict(zip(PARSE_PASSES, d[lane].tolist())),
+            "lane_cycles": dict(zip(passes, d[lane].tolist())),
             "most_sequences_lane": most,
             "most_sequences": int(nseq[most]),
-            "most_sequences_cycles": dict(zip(PARSE_PASSES,
-                                              d[most].tolist())),
-            "max_cycles": dict(zip(PARSE_PASSES, d.max(0).values.tolist()))}
+            "most_sequences_cycles": dict(zip(passes, d[most].tolist())),
+            "max_cycles": dict(zip(passes, d.max(0).values.tolist()))}
 
 
 def parse_passes(call) -> dict:
@@ -517,6 +529,28 @@ def assemble_lane(call, lane: int) -> dict:
     c["seq"] = {k: (tuple(one(t) for t in v) if isinstance(v, tuple)
                     else one(v)) for k, v in call["seq"].items()}
     return c
+
+
+# the assembly kernel's passes, between its clock stamps
+ASSEMBLE_PASSES = ("tables", "codes", "chains", "widths_scan", "fixed_bytes",
+                   "bitstreams", "cut_streams", "row_out")
+
+
+def assemble_passes(call) -> dict:
+    """The SM cycles each pass of the assembly kernel takes on a
+    ``capture_assemble`` record (clock64 stamps of thread 0 after each
+    pass's barrier, ``assemble_lanes(stamps=)``, after one warm-up
+    launch), as ``pass_cycles`` gives them.  The passes are
+    ``ASSEMBLE_PASSES``: the lane's tables into shared memory and the row
+    cleared, the values and codes, the three state chains (with the
+    Huffman quarters' widths), the sequences' widths and the block scan,
+    the sizes and the fixed-form bytes, the bitstreams, the streams cut at
+    their capacity, and the row out."""
+    stamps = torch.zeros(call["blocks"].shape[0], assemble.STAMPS,
+                         dtype=torch.int64, device=call["blocks"].device)
+    run_assemble(call)
+    run_assemble(call, lambda *a: assemble.assemble_lanes(*a, stamps=stamps))
+    return pass_cycles(stamps, call["parsed"]["nseq"], ASSEMBLE_PASSES)
 
 
 def assemble_work(call, out) -> tuple[int, int]:
@@ -672,8 +706,9 @@ def device_ms(fn, reps: int = 20, names=None) -> float:
 
 def _build_variant(src: Path, out: Path) -> tuple[ctypes.CDLL, list]:
     """nvcc `src` alone into `out`; returns the library (its
-    ``zt_fse_decode``, ``zt_huf_decode`` or ``zt_lz_parse`` declared,
-    whichever it has) and the ptxas lines of its log."""
+    ``zt_fse_decode``, ``zt_huf_decode``, ``zt_lz_parse`` or
+    ``zt_assemble`` declared, whichever it has) and the ptxas lines of
+    its log."""
     from . import _build
 
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -692,6 +727,11 @@ def _build_variant(src: Path, out: Path) -> tuple[ctypes.CDLL, list]:
     if hasattr(lib, "zt_lz_parse"):
         lib.zt_lz_parse.restype = i
         lib.zt_lz_parse.argtypes = [p, p, i, i, i, i, i, i] + [p] * 15
+    if hasattr(lib, "zt_assemble"):
+        lib.zt_assemble.restype = i
+        lib.zt_assemble.argtypes = [p] * 32 + [i] * 13 + [p, p]
+        lib.zt_assemble_scratch.restype = ctypes.c_longlong
+        lib.zt_assemble_scratch.argtypes = [i] * 8
     return lib, [ln.strip() for ln in log.splitlines()
                  if "ptxas" in ln or "spill" in ln]
 
@@ -1068,7 +1108,8 @@ def parse_windows(data: bytes, dev) -> dict:
 
     recs = [data[i:i + (16 << 10)] for i in range(0, 32 << 14, 16 << 10)]
     big = [data[i:i + (128 << 10)] for i in range(0, 32 << 17, 128 << 10)]
-    calls = capture_parse(lambda: compress_batch_device(recs + big, dev))
+    calls = capture_parse(lambda: compress_batch_device(recs + big,
+                                                        device=dev))
     lane = parse_passes(calls[0])["lane"]
     return {"chunk_16KB": calls[0], "chunk_128KB": calls[1],
             "slowest_lane_16KB": parse_lane(calls[0], lane)}
@@ -1117,6 +1158,99 @@ def parse_ab(data: bytes, dev, others: list) -> dict:
     return res
 
 
+def assemble_launcher(lib, call, stamps=None):
+    """A call of `lib`'s ``zt_assemble`` on a ``capture_assemble`` record
+    into preallocated outputs, the arguments ``assemble.assemble_lanes``
+    passes: (run, (rows, out_len))."""
+    out, args, keep = assemble.launch_args(
+        *(call[k] for k in ASSEMBLE_ARGS), stamps, lib)
+    stream = torch.cuda.current_stream(call["blocks"].device).cuda_stream
+
+    def run():
+        rc = lib.zt_assemble(*args, stream)
+        if rc:
+            raise RuntimeError(f"zt_assemble: cudaError_t {rc}")
+    run.keep = keep
+    return run, out
+
+
+def assemble_windows(data: bytes, dev) -> dict:
+    """The assembly kernel's main-path calls, as ``capture_assemble``
+    records: the encode cell's eight chunks (256 records of 16 KB of
+    `data`, "encode_8_chunks", a list), its first chunk, a 128 KB
+    bucket's chunk (32 records of 128 KB) and the first chunk's lane with
+    the most sequences alone."""
+    from .encode.device_pipeline import compress_batch_device
+
+    recs = [data[i:i + (16 << 10)] for i in range(0, 256 << 14, 16 << 10)]
+    big = [data[i:i + (128 << 10)] for i in range(0, 32 << 17, 128 << 10)]
+    calls = capture_assemble(lambda: compress_batch_device(recs + big,
+                                                           device=dev))
+    small = [c for c in calls if c["blocks"].shape[1] == 16 << 10]
+    lane = int(small[0]["parsed"]["nseq"].argmax())
+    return {"encode_8_chunks": small, "chunk_16KB": small[0],
+            "chunk_128KB": next(c for c in calls
+                                if c["blocks"].shape[1] == 128 << 10),
+            "most_sequences_lane_16KB": assemble_lane(small[0], lane)}
+
+
+def assemble_ab(data: bytes, dev, others: list) -> dict:
+    """csrc/assemble.cu and `others` ((name, source) pairs of the same
+    entry point), each built alone, checked against the plain version
+    (rows and out_len) on every call of ``assemble_windows`` and timed in
+    turns (the others, the kernel twice, the others in reverse): CUDA
+    events over 20 runs of the raw launcher (the eight chunks' window runs
+    all eight), the profiler's device time of the same, and the SM cycles
+    of each pass (clock64 stamps, ``pass_cycles``)."""
+    libs, ptxas = _build_all("assemble", others)
+    res = {"windows": {}, "ptxas": ptxas}
+    order = [n for n, _ in others]
+    turns = order + ["kernel", "kernel"] + order[::-1]
+    for wname, window in assemble_windows(data, dev).items():
+        calls = window if isinstance(window, list) else [window]
+        wants = [run_assemble(c, assemble.assemble_plain) for c in calls]
+        row = {"shape": list(calls[0]["blocks"].shape),
+               "launches": len(calls),
+               "nseq_max": max(int(c["parsed"]["nseq"].max())
+                               for c in calls)}
+        runs, stamps = {}, {}
+        for name, lib in libs.items():
+            st = torch.zeros(calls[0]["blocks"].shape[0], assemble.STAMPS,
+                             dtype=torch.int64, device=dev)
+            ones = []
+            for c, want in zip(calls, wants):
+                run, outs = assemble_launcher(lib, c)
+                run()
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(outs, want)):
+                    raise RuntimeError(f"assemble {wname}: {name} differs "
+                                       "from plain")
+                ones.append(run)
+            srun, _ = assemble_launcher(lib, calls[0], st)
+            srun()
+            torch.cuda.synchronize()
+            runs[name] = (lambda rs: lambda: [r() for r in rs])(ones)
+            stamps[name] = pass_cycles(st, calls[0]["parsed"]["nseq"],
+                                       ASSEMBLE_PASSES)
+        for name in turns:
+            row.setdefault(f"{name}_ms", []).append(event_ms(runs[name], 20))
+            row.setdefault(f"{name}_device_ms", []).append(
+                device_ms(runs[name], 20, ("assemble_kernel",)))
+        row["pass_cycles"] = stamps
+        n_bytes, n_ops = map(sum, zip(*(assemble_work(c, w)
+                                        for c, w in zip(calls, wants))))
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
+        res["windows"][wname] = row
+        times = "; ".join(f"{n} ms {row[n + '_ms']} device "
+                          f"{row[n + '_device_ms']}" for n in libs)
+        print(f"assemble {wname} {row['shape']} x {len(calls)}: all equal "
+              f"plain; {times}; bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}); cycles by pass on the slowest lane and "
+              f"on the lane with the most sequences {stamps}")
+    res["sm_clock_mhz"] = sm_clock_mhz()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     for k, entry, src in (("huf", "zt_huf_decode", "huf_decode.cu"),
@@ -1132,6 +1266,12 @@ def main(argv=None) -> int:
                          "beside csrc/lz_parse.cu (repeatable)")
     ap.add_argument("--parse-only", action="store_true",
                     help="run the parse kernel's A/B alone")
+    ap.add_argument("--assemble-baseline", type=Path, action="append",
+                    default=[], metavar="FILE.cu",
+                    help="another source of zt_assemble to build and time "
+                         "beside csrc/assemble.cu (repeatable)")
+    ap.add_argument("--assemble-only", action="store_true",
+                    help="run the assembly kernel's A/B alone")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_bench.json",
                     help="where to write the JSON result")
@@ -1146,10 +1286,15 @@ def main(argv=None) -> int:
     print(name)
     t0 = time.perf_counter()
     data = make_corpus(2 * N_RECORDS * REC_SIZE)
-    out = {"card": name,
-           "lz_parse": parse_ab(data, dev, [(f.stem, f)
-                                            for f in args.parse_baseline])}
+    out = {"card": name}
+    if not args.assemble_only:
+        out["lz_parse"] = parse_ab(data, dev, [(f.stem, f)
+                                               for f in args.parse_baseline])
     if not args.parse_only:
+        out["assemble"] = assemble_ab(data, dev,
+                                      [(f.stem, f)
+                                       for f in args.assemble_baseline])
+    if not (args.parse_only or args.assemble_only):
         out["histogram"] = hist_ab(data, dev, [(f.stem, f)
                                                for f in args.hist_baseline])
         windows = decode_windows(data, dev)

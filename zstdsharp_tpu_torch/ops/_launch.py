@@ -38,6 +38,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_flag(name: str, value) -> None:
+    """Raise TypeError where a device was passed in the place of the flag
+    `name`: the entry points take the reference's parameters in its order
+    and the device only as the keyword ``device=``."""
+    if isinstance(value, (str, torch.device)):
+        raise TypeError(f"{name}={value!r}: pass the device as the keyword "
+                        "device=, not by position")
+
+
 def check_cuda(device: torch.device) -> None:
     """Raise unless `device` is a CUDA device: the kernels have no other."""
     if device.type != "cuda":

@@ -48,6 +48,7 @@ MAX_N = 1 << 17      # the plane's largest bucket
 MAX_TS = 64          # a state fits the kernel's byte: table logs <= 6
 MAX_NSYM = 64
 STREAMS = ("ll", "of", "ml")  # the kernel's stream order
+STAMPS = 9  # the kernel's clock stamps a lane: the start, then each pass
 
 
 # ---------------------------------------------------------------------------
@@ -282,36 +283,72 @@ def _check_operands(blocks, n_valid, parsed, lit_sorted, lit_count, huf,
 
 
 def assemble_lanes(blocks, n_valid, parsed, lit_sorted, lit_count, huf, seq,
-                   W: int, WQ: int):
+                   W: int, WQ: int, stamps: torch.Tensor | None = None):
     """The frame row of every lane in one launch of the kernel, on the
     current stream; the operands as the module docstring says, contiguous,
     on one CUDA device.  Raises on any other device, dtype, shape or
-    layout.  Counts its launches in ``assemble_lanes.launches``."""
+    layout.  `stamps` (int64 [B, STAMPS] on the same device), when given,
+    receives each lane's SM clock at the start and after each of the
+    kernel's passes.  Counts its launches in ``assemble_lanes.launches``."""
     B, N, S = _check_operands(blocks, n_valid, parsed, lit_sorted, lit_count,
                               huf, seq, W, WQ)
     dev = blocks.device
+    if stamps is not None:
+        check_operand("stamps", stamps, (B, STAMPS), dev, torch.int64)
     check_cuda(dev)
+    out, args, _keep = launch_args(blocks, n_valid, parsed, lit_sorted,
+                                   lit_count, huf, seq, W, WQ, stamps)
+    if B:
+        launch("assemble", dev, _build.load().zt_assemble, *args)
+        assemble_lanes.launches += 1
+    return out
+
+
+_SCRATCH_CACHE: dict = {}
+
+
+def _scratch_per_lane(lib, N: int, S: int, shapes: tuple) -> int:
+    """``zt_assemble_scratch`` (the device-memory scratch bytes a lane
+    needs: 0 where its row and sequence arrays fit in shared memory) for
+    (N, S, the three streams' [nsym, TS]), asked of the library once."""
+    key = (N, S, shapes)
+    if key not in _SCRATCH_CACHE:
+        _SCRATCH_CACHE[key] = lib.zt_assemble_scratch(N, S, *shapes)
+    return _SCRATCH_CACHE[key]
+
+
+def launch_args(blocks, n_valid, parsed, lit_sorted, lit_count, huf, seq,
+                W: int, WQ: int, stamps=None, lib=None):
+    """The outputs of one ``zt_assemble`` call on checked operands (rows,
+    out_len, allocated), its arguments but the stream, and the scratch
+    tensor those point into, which must outlive the launch.  `lib`, when
+    given, is another build of the kernel whose scratch size is asked
+    (kernel_bench's A/B)."""
+    B, N = blocks.shape
+    S = parsed["starts"].shape[1]
+    dev = blocks.device
     rows = torch.empty(B, N + 16, dtype=torch.uint8, device=dev)
     out_len = torch.empty(B, dtype=torch.int32, device=dev)
-    if B:
-        lib = _build.load()
-        shapes = [d for name in STREAMS for d in seq[name][0].shape[1:]]
+    shapes = tuple(d for name in STREAMS for d in seq[name][0].shape[1:])
+    if not B:
+        per_lane = 0
+    elif lib is None:
+        per_lane = _scratch_per_lane(_build.load(), N, S, shapes)
+    else:
         per_lane = lib.zt_assemble_scratch(N, S, *shapes)
-        scratch = (torch.empty(B * per_lane, dtype=torch.uint8, device=dev)
-                   if per_lane else None)
-        codes, nbits, desc, dlen, ok = huf
-        tensors = (blocks, n_valid, parsed["starts"], parsed["mls"],
-                   parsed["offs"], parsed["nseq"], lit_sorted, lit_count,
-                   codes, nbits, desc, dlen, ok,
-                   *(t for name in STREAMS for t in seq[name]),
-                   seq["mode"], seq["tbl"], seq["tbl_len"], _lut(dev), rows,
-                   out_len)
-        launch("assemble", dev, lib.zt_assemble,
-               *(t.data_ptr() for t in tensors),
-               None if scratch is None else scratch.data_ptr(),
-               B, N, S, W, WQ, desc.shape[1], seq["tbl"].shape[1], *shapes)
-        assemble_lanes.launches += 1
-    return rows, out_len
+    scratch = (torch.empty(B * per_lane, dtype=torch.uint8, device=dev)
+               if per_lane else None)
+    codes, nbits, desc, dlen, ok = huf
+    tensors = (blocks, n_valid, parsed["starts"], parsed["mls"],
+               parsed["offs"], parsed["nseq"], lit_sorted, lit_count, codes,
+               nbits, desc, dlen, ok,
+               *(t for name in STREAMS for t in seq[name]), seq["mode"],
+               seq["tbl"], seq["tbl_len"], _lut(dev), rows, out_len)
+    args = (*(t.data_ptr() for t in tensors),
+            None if scratch is None else scratch.data_ptr(), B, N, S, W, WQ,
+            desc.shape[1], seq["tbl"].shape[1], *shapes,
+            None if stamps is None else stamps.data_ptr())
+    return (rows, out_len), args, scratch
 
 
 assemble_lanes.launches = 0

@@ -334,7 +334,7 @@ def decompress_data_parallel(stream: bytes, mesh=None,
             ts = time.perf_counter()
             with _on(mesh[d]):
                 outs, _ = decode_batch_device([frames[i] for i in mine[d]],
-                                              mesh[d], materialize=True)
+                                              device=mesh[d], materialize=True)
             return outs, time.perf_counter() - ts
 
         with ThreadPoolExecutor(max_workers=ndev) as pool:
@@ -417,7 +417,7 @@ def compress_records_device(records, mesh=None,
             return [], None
         with _on(mesh[d]):
             return compress_batch_device([records[i] for i in shards[d]],
-                                         mesh[d], materialize=True)
+                                         device=mesh[d], materialize=True)
 
     with ThreadPoolExecutor(max_workers=ndev) as pool:
         for d, (frames, stats) in enumerate(pool.map(run_shard, range(ndev))):
