@@ -1,0 +1,17 @@
+"""The encode's uploads, wall ms a call (``timings['tables.upload'] +
+['pack.upload']``: every chunk's tables, then each bucket's records)."""
+
+UNIT = "ms"
+LAYER = "host tables"
+MOVES = "encode_GBps"
+
+
+KEYS = ('tables.upload', 'pack.upload')
+
+
+def read(ctx):
+    s = ctx["stages"]
+    if ctx["plane"] != "encode" or not s or not s["calls"]:
+        return None
+    got = [s["timings"][k] for k in KEYS if k in s["timings"]]
+    return 1e3 * sum(got) / s["calls"] if got else None

@@ -218,6 +218,13 @@ def _timed(fn):
     return time.perf_counter() - t
 
 
+def _stage_ms(stages: dict) -> dict:
+    """A `timings=` dict for printing: spans in ms, counters ("n.*") as
+    counted."""
+    return {k: v if k.startswith("n.") else round(v * 1e3, 3)
+            for k, v in stages.items()}
+
+
 def _first_block(frame: bytes):
     """(last-block flag, block type) of a frame's first block."""
     import numpy as np
@@ -1014,7 +1021,7 @@ def _encode_phases(data, dev, card):
     print(f"phase encode timings: {payload} B in {N_RECORDS} records: "
           f"marginal {payload / marg / 1e9:.4f} GB/s ({marg * 1e3:.2f} ms), "
           f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} ms); "
-          f"stages ms { {k: round(v * 1e3, 3) for k, v in stages.items()} }; "
+          f"stages ms {_stage_ms(stages)}; "
           f"compressed {csize} B; host compress L1 "
           f"{payload / host_s / 1e9:.4f} GB/s ({host_s * 1e3:.2f} ms) -> "
           f"{host_size} B on {card}")
@@ -1333,7 +1340,7 @@ def _dict_phases(big, dev, card):
               f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} "
               f"ms), marginal {payload / marg / 1e9:.4f} GB/s "
               f"({marg * 1e3:.2f} ms); stages ms "
-              f"{ {k: round(v * 1e3, 3) for k, v in stages.items()} }; host "
+              f"{_stage_ms(stages)}; host "
               f"NativeDDict.decompress_many {payload / host_s / 1e9:.4f} GB/s "
               f"({host_s * 1e3:.2f} ms) on {card}")
     _check(all(v > 0 for v in launches.values()),
@@ -1597,7 +1604,7 @@ def main() -> int:
     print(f"phase timings: pipeline {payload} B in {N_RECORDS} frames: "
           f"end-to-end {payload / e2e / 1e9:.4f} GB/s ({e2e * 1e3:.2f} ms), "
           f"marginal {payload / marg / 1e9:.4f} GB/s ({marg * 1e3:.2f} ms); "
-          f"stages ms { {k: round(v * 1e3, 3) for k, v in stages.items()} }; "
+          f"stages ms {_stage_ms(stages)}; "
           f"host decompress (route {route}) {payload / host_s / 1e9:.4f} "
           f"GB/s ({host_s * 1e3:.2f} ms), through ctypes with the extension "
           f"off {payload / ctypes_s / 1e9:.4f} GB/s ({ctypes_s * 1e3:.2f} "

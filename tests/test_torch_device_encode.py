@@ -189,7 +189,8 @@ def test_encode_frames_rows_and_lens_equal_reference(huf_literals):
     assert rows.dtype == torch.uint8 and lens.dtype == torch.int32
     assert np.array_equal(lens.numpy(), np.asarray(w_lens))
     assert np.array_equal(rows.numpy(), np.asarray(w_rows))
-    assert set(timings) == {"parse", "tables", "assembly"}
+    assert set(timings) == {"parse", "tables", "tables.lit", "tables.seq",
+                            "tables.upload", "assembly"}
     _decodes([rows[k, :lens[k]].numpy().tobytes() for k in range(len(recs))],
              recs)
 

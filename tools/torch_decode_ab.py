@@ -58,7 +58,8 @@ def _time(call, reps: int) -> tuple[list, dict]:
         tm: dict = {}
         call(tm)
         for k, v in tm.items():
-            stages.setdefault(k, []).append(v * 1e3)
+            stages.setdefault(k, []).append(
+                v if k.startswith("n.") else v * 1e3)
     return e2e, stages
 
 

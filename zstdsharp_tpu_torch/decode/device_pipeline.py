@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import time
 from dataclasses import dataclass, field
 from itertools import chain
 from operator import attrgetter
@@ -64,6 +63,7 @@ from ..ops import device_fse as df
 from ..ops import device_huf as dh
 from ..ops._launch import check_flag, resolve_device
 from ..ops.execseq import LaneSources, execute, execute_lanes, lanes_plain
+from ..utils import trace
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
                     decode_sequences)
@@ -490,7 +490,7 @@ def _start_entropy(ddict) -> EntropyState:
                         rep=list(de.rep))
 
 
-def _plan_multiblock(plan, fi, frame, hdr, ddict=None):
+def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
     """Walk every block of a multi-block frame (reference
     _plan_multiblock): literal sections become device lanes or pool spans,
     sequence sections are host-decoded so the repcode and repeat-table
@@ -565,8 +565,9 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None):
             if nbseq > 0:
                 if nbseq > _S_BUCKETS[-1]:
                     return "sequence count beyond device bucket"
-                lls, mls, ofs = decode_sequences(
-                    rest[consumed:], nbseq, ll_dt, of_dt, ml_dt, ent.rep)
+                with trace.stage("plan.host_seqs", timings, plane="decode"):
+                    lls, mls, ofs = decode_sequences(
+                        rest[consumed:], nbseq, ll_dt, of_dt, ml_dt, ent.rep)
                 b.seq_kind = 2
                 b.host_row = len(plan.host_seqs)
                 plan.host_seqs.append((lls, mls, ofs))
@@ -642,7 +643,7 @@ def _add_huf_lanes(plan, b, weights, sf, streams, regen) -> bool:
     return False
 
 
-def plan_batch(frames, ddict=None) -> DevicePlan:
+def plan_batch(frames, ddict=None, timings=None) -> DevicePlan:
     """Host header pass: split each frame into device work or a host route
     (reference plan_batch).  Without a dictionary the native planner plans
     single-block frames in one call; frames outside its scope take the
@@ -654,7 +655,11 @@ def plan_batch(frames, ddict=None) -> DevicePlan:
     takes the Python planner: ``plan.window`` is the last 128 KB of the
     dictionary's content, its tables and repcodes seed each frame's
     entropy and treeless literal sections take its Huffman weights.  A
-    dictionary over 128 KB sends every frame to the host."""
+    dictionary over 128 KB sends every frame to the host.
+
+    timings: the stage sink (``utils.trace``): "plan.native" (the native
+    planner's call), "plan.python" (each frame the Python planner takes)
+    and, inside it, "plan.host_seqs" (its host sequence decodes)."""
     plan = DevicePlan(nb=_native_ops_for(frames), n_frames=len(frames))
     if ddict is not None:
         plan.window = np.asarray(ddict.content)[-(1 << 17):].tobytes()
@@ -662,9 +667,10 @@ def plan_batch(frames, ddict=None) -> DevicePlan:
         if ddict.entropy is not None and len(ddict.raw) >= 8:
             d_huf = huffman.read_weights(ddict.raw[8:])[:2]
         for fi, frame in enumerate(frames):
-            _plan_or_route(plan, fi, frame, ddict, d_huf)
+            _plan_or_route(plan, fi, frame, ddict, d_huf, timings)
         return plan
-    rcs, metas = plan.nb.plan_all(frames)
+    with trace.stage("plan.native", timings, plane="decode"):
+        rcs, metas = plan.nb.plan_all(frames)
     for fi, frame in enumerate(frames):
         rc, m = int(rcs[fi]), metas[fi]
         if rc == 0:
@@ -685,20 +691,22 @@ def plan_batch(frames, ddict=None) -> DevicePlan:
             plan.host_routed[fi] = _NATIVE_ROUTE.get(rc, f"native route {rc}")
             continue
         # rc < 0: outside the native planner's scope
-        _plan_or_route(plan, fi, frame)
+        _plan_or_route(plan, fi, frame, timings=timings)
     return plan
 
 
-def _plan_or_route(plan, fi, frame, ddict=None, d_huf=None) -> None:
-    try:
-        err = _plan_python(plan, fi, frame, ddict, d_huf)
-    except Exception as e:  # defensive routing, as in the reference
-        err = f"plan error: {e}"
+def _plan_or_route(plan, fi, frame, ddict=None, d_huf=None,
+                   timings=None) -> None:
+    with trace.stage("plan.python", timings, plane="decode"):
+        try:
+            err = _plan_python(plan, fi, frame, ddict, d_huf, timings)
+        except Exception as e:  # defensive routing, as in the reference
+            err = f"plan error: {e}"
     if err:
         plan.host_routed[fi] = err
 
 
-def _plan_python(plan, fi, frame, ddict=None, d_huf=None):
+def _plan_python(plan, fi, frame, ddict=None, d_huf=None, timings=None):
     """Plan one frame in Python: a frame of a dictionary batch, a
     multi-block frame, or a single-block frame whose streams exceed the
     native planner's envelope.  `d_huf` is the dictionary's Huffman
@@ -720,7 +728,7 @@ def _plan_python(plan, fi, frame, ddict=None, d_huf=None):
     bh = int.from_bytes(frame[p:p + 3], "little")
     last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
     if not last:
-        return _plan_multiblock(plan, fi, frame, hdr, ddict)
+        return _plan_multiblock(plan, fi, frame, hdr, ddict, timings)
     body_len = bsize if btype != 1 else 1
     tail = 4 if hdr.has_checksum else 0
     if p + 3 + body_len + tail > len(frame):
@@ -780,8 +788,9 @@ def _plan_python(plan, fi, frame, ddict=None, d_huf=None):
             b.fse_lane = plan.add_fse_lane(
                 seq_payload, (ll_dt, of_dt, ml_dt), nbseq, ent.rep)
         else:
-            lls, mls, ofs = decode_sequences(
-                seq_payload, nbseq, ll_dt, of_dt, ml_dt, list(ent.rep))
+            with trace.stage("plan.host_seqs", timings, plane="decode"):
+                lls, mls, ofs = decode_sequences(
+                    seq_payload, nbseq, ll_dt, of_dt, ml_dt, list(ent.rep))
             b.seq_kind = 2
             b.host_row = len(plan.host_seqs)
             plan.host_seqs.append((lls, mls, ofs))
@@ -905,29 +914,32 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
     ddict: a parsed dictionary (``dictionary.ParsedDict``) every frame
     decodes against (``plan_batch``).
 
-    timings: when a dict is given, the device is synchronised after each
-    stage and the stage's wall seconds are stored under "plan", "host"
-    (host-routed frames), "huf", "fse", "exec" and "mb_exec".
+    timings: when a dict is given, each stage's wall seconds are added
+    under its key, the device synchronised at the stage's end: "plan" (the
+    planner, ``plan_batch``; inside it "plan.native", "plan.python" and
+    "plan.host_seqs"), "host" (host-routed frames), "huf" and "fse" (the
+    entropy kernels; inside each, "huf.upload" / "fse.upload", their
+    operands' copies), "exec" (the single-block lanes in one launch, after
+    the lanes' sources: inside it "exec.upload", the host sequence rows,
+    the pool, the meta rows and the window rows), "mb_exec" (the
+    multi-block frames' rounds) and "materialize" (``materialize=True``'s
+    copies and checks); counters "n.lanes" (the lanes the executor takes:
+    single-block frames and every block of the multi-block ones) and
+    "n.host_seq_lanes" (those whose sequences the planner decoded on the
+    host).  Keys a batch does not reach are absent.  Under a running
+    torch.profiler the planner's spans are also recorded as "decode.plan",
+    "decode.plan.native", ... (``utils.trace``).
     """
     check_flag("materialize", materialize)
     device = resolve_device(device)
-    clock = [time.perf_counter()]
-
-    def tick(stage):
-        if timings is None:
-            return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        timings[stage] = timings.get(stage, 0.0) + now - clock[0]
-        clock[0] = now
-
-    plan = plan_batch(frames, ddict)
-    tick("plan")
+    with trace.stage("plan", timings, device, "decode"):
+        plan = plan_batch(frames, ddict, timings)
+    trace.count("lanes", len(plan.blocks) + sum(
+        len(f["blocks"]) for f in plan.mb_frames), timings)
+    trace.count("host_seq_lanes", len(plan.host_seqs), timings)
     nb = plan.nb
-    host_results = _host_decode(frames, plan.host_routed, ddict)
-    if host_results:
-        tick("host")
+    with trace.stage("host", timings if plan.host_routed else None, device):
+        host_results = _host_decode(frames, plan.host_routed, ddict)
     if not plan.blocks and not plan.mb_frames:
         _release_ops(nb, None)  # nothing was uploaded from the ctx
         if materialize:
@@ -938,109 +950,126 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
     # ---- stage 1: entropy kernels ----
     huf_flat, huf_T = None, 0
     if nb.n_huf:
-        outs = [dh.decode_lanemajor(ops_to_device(nb.huf_ops(i), device))
-                for i in range(0, nb.n_huf, dh.LANES)]
-        huf_T = max(o.shape[1] for o in outs)
-        huf_flat = torch.cat([torch.nn.functional.pad(
-            o, (0, huf_T - o.shape[1])) for o in outs]).reshape(-1)
-        tick("huf")
+        with trace.stage("huf", timings, device):
+            outs = []
+            for i in range(0, nb.n_huf, dh.LANES):
+                with trace.stage("huf.upload", timings):
+                    ops = ops_to_device(nb.huf_ops(i), device)
+                outs.append(dh.decode_lanemajor(ops))
+            huf_T = max(o.shape[1] for o in outs)
+            huf_flat = torch.cat([torch.nn.functional.pad(
+                o, (0, huf_T - o.shape[1])) for o in outs]).reshape(-1)
 
     fse_rows, fse_T = None, 0
     if nb.n_fse:
-        parts = [df.decode_lanemajor(ops_to_device(nb.fse_ops(i), device))
-                 for i in range(0, nb.n_fse, df.LANES)]
-        fse_T = max(p[0].shape[1] for p in parts)
-        fse_rows = tuple(torch.cat([torch.nn.functional.pad(
-            p[k], (0, fse_T - p[k].shape[1])) for p in parts])
-            for k in range(3))
-        tick("fse")
-
-    # host-decoded sequence rows (fallback lanes and multi-block blocks)
-    S = _bucket(max(plan.max_seq, fse_T, 1), _S_BUCKETS)
-    h_rows = None
-    if plan.host_seqs:
-        h = np.zeros((3, len(plan.host_seqs), S), np.int32)
-        for r, seqs in enumerate(plan.host_seqs):
-            for k in range(3):
-                h[k, r, :len(seqs[k])] = seqs[k]
-        h_rows = tuple(torch.from_numpy(h[k]).to(device) for k in range(3))
-
-    raw_flat = torch.from_numpy(
-        np.frombuffer(nb.pool_bytes() + b"\x00", np.uint8).copy()).to(device)
-    fence = None
-    if device.type == "cuda":
-        fence = torch.cuda.Event()
-        fence.record(torch.cuda.current_stream(device))
-    _release_ops(nb, fence)
+        with trace.stage("fse", timings, device):
+            parts = []
+            for i in range(0, nb.n_fse, df.LANES):
+                with trace.stage("fse.upload", timings):
+                    ops = ops_to_device(nb.fse_ops(i), device)
+                parts.append(df.decode_lanemajor(ops))
+            fse_T = max(p[0].shape[1] for p in parts)
+            fse_rows = tuple(torch.cat([torch.nn.functional.pad(
+                p[k], (0, fse_T - p[k].shape[1])) for p in parts])
+                for k in range(3))
 
     # ---- stage 2: every lane in one call (one launch on a card) ----
-    src = LaneSources(raw_flat, huf_flat, huf_T, fse_rows, h_rows)
+    S = _bucket(max(plan.max_seq, fse_T, 1), _S_BUCKETS)
     O = _bucket(max(plan.max_out, 1), _O_BUCKETS)
     B = EXEC_LANES
     outputs, flags = [], []
     lengths = np.array([b.out_len for b in plan.blocks], np.int64)
-    if plan.blocks:
-        n = -(-len(plan.blocks) // B) * B  # padding lanes: zero meta rows
-        rows, bad = _fused_decode(
-            torch.from_numpy(_meta_array(plan.blocks, len(plan.window),
-                                         n)).to(device),
-            src, S, O, _window_rows(plan.window, n, device))
-        outputs = list(rows.split(B))
-        flags.append(bad)
-        tick("exec")
+    with trace.stage("exec", timings, device):
+        # the lanes' sources: host-decoded sequence rows (fallback lanes
+        # and multi-block blocks) and the raw pool
+        with trace.stage("exec.upload", timings):
+            with trace.stage("exec.upload", None, plane="decode"):
+                h = None
+                if plan.host_seqs:
+                    h = np.zeros((3, len(plan.host_seqs), S), np.int32)
+                    for r, seqs in enumerate(plan.host_seqs):
+                        for k in range(3):
+                            h[k, r, :len(seqs[k])] = seqs[k]
+                pool = np.frombuffer(nb.pool_bytes() + b"\x00",
+                                     np.uint8).copy()
+            h_rows = None if h is None else tuple(
+                torch.from_numpy(h[k]).to(device) for k in range(3))
+            raw_flat = torch.from_numpy(pool).to(device)
+        fence = None
+        if device.type == "cuda":
+            fence = torch.cuda.Event()
+            fence.record(torch.cuda.current_stream(device))
+        _release_ops(nb, fence)
+        src = LaneSources(raw_flat, huf_flat, huf_T, fse_rows, h_rows)
+        if plan.blocks:
+            n = -(-len(plan.blocks) // B) * B  # padding lanes: zero meta rows
+            with trace.stage("exec.upload", timings):
+                meta = torch.from_numpy(
+                    _meta_array(plan.blocks, len(plan.window), n)).to(device)
+                window = _window_rows(plan.window, n, device)
+            rows, bad = _fused_decode(meta, src, S, O, window)
+            outputs = list(rows.split(B))
+            flags.append(bad)
 
     # ---- multi-block frames: dependent execution rounds ----
     mb_device = {}
-    for group in _mb_groups(plan.mb_frames):
-        F = len(group)
-        Wb = _bucket(max(f["window"] for f in group), _MBW_BUCKETS)
-        Cb = _bucket(max(f["content"] for f in group), _MBC_BUCKETS)
-        n_rounds = max(len(f["blocks"]) for f in group)
-        O_max = _bucket(max(b.out_len for f in group for b in f["blocks"]),
-                        _O_BUCKETS)
-        acc = torch.zeros(F, Wb + Cb + O_max, dtype=torch.uint8,
-                          device=device)
-        if plan.window:  # the dictionary's tail ends each frame's window
-            acc[:, Wb - len(plan.window):Wb] = torch.frombuffer(
-                bytearray(plan.window), dtype=torch.uint8).to(device)
-        group_bad = torch.zeros(F, dtype=torch.int32, device=device)
-        for r in range(n_rounds):
-            # one upload a round: the meta rows, then each lane's window
-            # start and output start.  Lane k's window is the Wb bytes
-            # before its block's output in row k of acc, its output the
-            # O_max bytes from there (starts clamped into the row, as
-            # jax.lax.dynamic_slice / dynamic_update_slice); an inactive
-            # lane starts at Cb and writes zeros past its content (padding)
-            buf = np.zeros(F * 14, np.int64)
-            meta, starts = buf[:F * 12].reshape(F, 12), buf[F * 12:]
-            starts[:F] = Cb
-            ks = [k for k, f in enumerate(group) if r < len(f["blocks"])]
-            blocks = [group[k]["blocks"][r] for k in ks]
-            out_off = np.array([b.out_off for b in blocks], np.int64)
-            # a match may reach the frame's output before the block and the
-            # dictionary, as far as the Wb-byte window holds
-            meta[ks] = _meta_array(
-                blocks, np.minimum(out_off + len(plan.window), Wb))
-            starts[ks] = out_off
-            starts[F:] = Wb + starts[:F]
-            t = torch.from_numpy(buf).to(device)
-            _, bad = _fused_decode(
-                t[:F * 12].view(F, 12), src, S, O_max, acc,
-                win_start=t[F * 12:F * 13], W=Wb, out=acc,
-                out_start=t[F * 13:])
-            group_bad |= bad  # inactive lanes flag nothing
-        for k, f in enumerate(group):
-            mb_device[f["frame_idx"]] = (
-                acc[k, Wb:Wb + f["content"]], f["content"], f["checksum"])
-        flags.append(group_bad)
-    if mb_device:
-        tick("mb_exec")
+    with trace.stage("mb_exec", timings if plan.mb_frames else None, device):
+        for group in _mb_groups(plan.mb_frames):
+            F = len(group)
+            Wb = _bucket(max(f["window"] for f in group), _MBW_BUCKETS)
+            Cb = _bucket(max(f["content"] for f in group), _MBC_BUCKETS)
+            n_rounds = max(len(f["blocks"]) for f in group)
+            O_max = _bucket(max(b.out_len for f in group for b in f["blocks"]),
+                            _O_BUCKETS)
+            acc = torch.zeros(F, Wb + Cb + O_max, dtype=torch.uint8,
+                              device=device)
+            if plan.window:  # the dictionary's tail ends each frame's window
+                acc[:, Wb - len(plan.window):Wb] = torch.frombuffer(
+                    bytearray(plan.window), dtype=torch.uint8).to(device)
+            group_bad = torch.zeros(F, dtype=torch.int32, device=device)
+            for r in range(n_rounds):
+                # one upload a round: the meta rows, then each lane's window
+                # start and output start.  Lane k's window is the Wb bytes
+                # before its block's output in row k of acc, its output the
+                # O_max bytes from there (starts clamped into the row, as
+                # jax.lax.dynamic_slice / dynamic_update_slice); an inactive
+                # lane starts at Cb and writes zeros past its content (padding)
+                buf = np.zeros(F * 14, np.int64)
+                meta, starts = buf[:F * 12].reshape(F, 12), buf[F * 12:]
+                starts[:F] = Cb
+                ks = [k for k, f in enumerate(group) if r < len(f["blocks"])]
+                blocks = [group[k]["blocks"][r] for k in ks]
+                out_off = np.array([b.out_off for b in blocks], np.int64)
+                # a match may reach the frame's output before the block and the
+                # dictionary, as far as the Wb-byte window holds
+                meta[ks] = _meta_array(
+                    blocks, np.minimum(out_off + len(plan.window), Wb))
+                starts[ks] = out_off
+                starts[F:] = Wb + starts[:F]
+                t = torch.from_numpy(buf).to(device)
+                _, bad = _fused_decode(
+                    t[:F * 12].view(F, 12), src, S, O_max, acc,
+                    win_start=t[F * 12:F * 13], W=Wb, out=acc,
+                    out_start=t[F * 13:])
+                group_bad |= bad  # inactive lanes flag nothing
+            for k, f in enumerate(group):
+                mb_device[f["frame_idx"]] = (
+                    acc[k, Wb:Wb + f["content"]], f["content"], f["checksum"])
+            flags.append(group_bad)
 
     if not materialize:
         for fi, (row, _n, _cks) in mb_device.items():
             host_results[fi] = row  # device-resident uint8 [content]
         return outputs, lengths, host_results
+    with trace.stage("materialize", timings, device):
+        return _materialize(plan, outputs, flags, mb_device, host_results,
+                            device)
 
+
+def _materialize(plan, outputs, flags, mb_device, host_results, device):
+    """``materialize=True``'s tail: every frame's bytes in order, after the
+    executor's flags and the stored checksums are checked."""
+    B = EXEC_LANES
     # every device frame's flags: chunk lanes in plan.blocks order (padding
     # lanes flag nothing), then each multi-block group's frames.  They are
     # copied without a wait, into pinned memory on a card, ahead of the
@@ -1063,18 +1092,21 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
         for k, b in enumerate(plan.blocks[ci * B:(ci + 1) * B]):
             device_rows.append(
                 (b.frame_idx, host[k, :b.out_len].tobytes(), b.checksum))
-    flagged = [(fi, int(v)) for fi, v in zip(lane_frames, bad.numpy()) if v]
-    if flagged:
-        fi, v = min(flagged)
-        raise ZstdError(ZstdErrorCode.corruption_detected,
-                        f"frame {fi}: " + "; ".join(
-                            why for bit, why in _FLAG_REASONS if v >> bit & 1))
-    for fi, data, cks in device_rows:
-        if cks >= 0 and content_checksum(data) != cks:
-            raise ZstdError(ZstdErrorCode.checksum_wrong,
-                            f"frame {fi}: content checksum mismatch on "
-                            "device-decoded output")
-        results[fi] = data
+    with trace.stage("materialize", None, plane="decode"):
+        flagged = [(fi, int(v)) for fi, v in zip(lane_frames, bad.numpy())
+                   if v]
+        if flagged:
+            fi, v = min(flagged)
+            raise ZstdError(ZstdErrorCode.corruption_detected,
+                            f"frame {fi}: " + "; ".join(
+                                why for bit, why in _FLAG_REASONS
+                                if v >> bit & 1))
+        for fi, data, cks in device_rows:
+            if cks >= 0 and content_checksum(data) != cks:
+                raise ZstdError(ZstdErrorCode.checksum_wrong,
+                                f"frame {fi}: content checksum mismatch on "
+                                "device-decoded output")
+            results[fi] = data
     stats = {"device_frames": len(plan.blocks) + len(plan.mb_frames),
              "host_frames": len(host_results)}
     return results, stats

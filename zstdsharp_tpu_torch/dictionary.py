@@ -199,15 +199,19 @@ class ZstdCompressionDict:
             return []
         dd = self._ddict()
         if dd is not None:
-            out = dd.decompress_many(
-                [bytes(f) for f in frames],
-                expect_dict_id=self._parsed.dict_id,
-                fallback=lambda f: self.decompress_with(
-                    f, max_output_size=max_output_size))
+            fell_back = []
+
+            def fallback(f):
+                fell_back.append(1)
+                return self.decompress_with(f, max_output_size=max_output_size)
+
+            out = dd.decompress_many([bytes(f) for f in frames],
+                                     expect_dict_id=self._parsed.dict_id,
+                                     fallback=fallback)
             if out is not None:
                 self.last_decompress_path = (
-                    "native-batch" if dd.last_fallback_count == 0
-                    else f"native-batch+{dd.last_fallback_count}-fallbacks")
+                    f"native-batch+{len(fell_back)}-fallbacks" if fell_back
+                    else "native-batch")
                 if max_output_size is not None:
                     for o in out:
                         check(len(o) <= max_output_size,

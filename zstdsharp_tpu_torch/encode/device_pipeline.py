@@ -21,6 +21,7 @@ import torch
 
 from ..ops._launch import check_flag, resolve_device
 from ..ops.device_encode import encode_frames_device, seq_budget, word_budget
+from ..utils import trace
 from .frame import compress
 
 # records per device chunk, and the record-size buckets (the reference's)
@@ -51,8 +52,16 @@ def compress_batch_device(records, materialize: bool = False,
     outside the device envelope.  With materialize=True, returns (frames,
     stats): every record's frame bytes in order plus routing stats.
 
-    timings: when a dict is given, each phase's wall seconds are added
-    under "parse", "tables" and "assembly" (``encode_frames_device``).
+    timings: when a dict is given, each stage's wall seconds are added
+    under its key, the device synchronised at the stage's end: "pack"
+    (the records packed into each bucket's arrays; inside it
+    "pack.upload", their copy), "parse", "tables" (with "tables.lit",
+    "tables.seq" and "tables.upload") and "assembly" of every chunk
+    (``encode_frames_device``), and with materialize=True "materialize"
+    (the frames' copies and each record's bytes).  Under a running
+    torch.profiler the host stretches of "pack" and "materialize" are
+    also recorded as "encode.pack" and "encode.materialize"
+    (``utils.trace``).
     """
     check_flag("materialize", materialize)
     device = resolve_device(device)
@@ -71,14 +80,17 @@ def compress_batch_device(records, materialize: bool = False,
         W = word_budget(S)
         n_chunks = -(-len(idxs) // LANES)
         # one upload per bucket: every chunk's padded records at once
-        blocks = np.zeros((n_chunks * LANES, N), np.uint8)
-        nv = np.zeros(n_chunks * LANES, np.int32)
-        for k, ri in enumerate(idxs):
-            r = records[ri]
-            blocks[k, :len(r)] = np.frombuffer(r, np.uint8)
-            nv[k] = len(r)
-        blocks_d = torch.from_numpy(blocks).to(device)
-        nv_d = torch.from_numpy(nv).to(device)
+        with trace.stage("pack", timings, device):
+            with trace.stage("pack", None, plane="encode"):
+                blocks = np.zeros((n_chunks * LANES, N), np.uint8)
+                nv = np.zeros(n_chunks * LANES, np.int32)
+                for k, ri in enumerate(idxs):
+                    r = records[ri]
+                    blocks[k, :len(r)] = np.frombuffer(r, np.uint8)
+                    nv[k] = len(r)
+            with trace.stage("pack.upload", timings):
+                blocks_d = torch.from_numpy(blocks).to(device)
+                nv_d = torch.from_numpy(nv).to(device)
         for c in range(n_chunks):
             lanes = slice(c * LANES, (c + 1) * LANES)
             rows, lens = encode_frames_device(
@@ -92,11 +104,13 @@ def compress_batch_device(records, materialize: bool = False,
     frames: list = [None] * len(records)
     for ri, f in host_results.items():
         frames[ri] = f
-    for part, rows, lens in chunks:
-        h = rows.cpu().numpy()
-        ln = lens.cpu().numpy()
-        for k, ri in enumerate(part):
-            frames[ri] = h[k, :ln[k]].tobytes()
+    with trace.stage("materialize", timings, device):
+        for part, rows, lens in chunks:
+            h = rows.cpu().numpy()
+            ln = lens.cpu().numpy()
+            with trace.stage("materialize", None, plane="encode"):
+                for k, ri in enumerate(part):
+                    frames[ri] = h[k, :ln[k]].tobytes()
     stats = {"device_frames": sum(len(p) for p, _, _ in chunks),
              "host_frames": len(host_results)}
     return frames, stats

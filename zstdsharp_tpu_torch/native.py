@@ -648,7 +648,6 @@ class NativeDDict(_Handle):
         super().__init__()
         self.content_len = content_len
         self.dict_id = dict_id
-        self.last_fallback_count = 0
         raw = _u8(bytes(dict_raw))
         self._h = self._lib.zt_ddict_create(_ptr(raw, ctypes.c_uint8),
                                             len(raw))
@@ -683,11 +682,9 @@ class NativeDDict(_Handle):
         body or a bad checksum -- goes to `fallback(frame)`, the caller's
         one-frame decoder that raises the proper error, and the batch
         resumes natively after it; without a fallback the call returns
-        None.  ``last_fallback_count`` says how many frames left the
-        native path."""
+        None."""
         if expect_dict_id is None:
             expect_dict_id = self.dict_id
-        self.last_fallback_count = 0
         results: list[bytes] = [b""] * len(frames)
         start = 0
         while start < len(frames):
@@ -715,7 +712,6 @@ class NativeDDict(_Handle):
             # the one frame the native call cannot serve; its error
             # (dictionary_wrong, checksum_wrong, ...) propagates
             results[start + failed] = fallback(sub[failed])
-            self.last_fallback_count += 1
             start += failed + 1
         return results
 

@@ -34,13 +34,12 @@ the reference; they call the port's own host tier (``..entropy``,
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from .. import constants as C
 from ..entropy import fse, huffman
+from ..utils import trace
 
 from .common import highbit
 from .histogram import histogram_u8
@@ -427,60 +426,58 @@ def encode_frames_device(blocks: torch.Tensor, n_valid: torch.Tensor,
     lengths [B]) on one device -> zstd frame rows uint8 [B, N+16] + lengths
     int32 [B] on that device.
 
-    timings: when a dict is given, the device is synchronised after each
-    phase and the phase's wall seconds are added under "parse", "tables"
-    and "assembly"."""
+    timings: when a dict is given, each phase's wall seconds are added
+    under its key, the device synchronised at the phase's end: "parse"
+    (the parse kernel and the counts' copy), "tables" (inside it
+    "tables.lit" and "tables.seq", the host builders, and
+    "tables.upload", their tables' copies) and "assembly".  Under a
+    running torch.profiler the builders are also recorded as
+    "encode.tables.lit" and "encode.tables.seq" (``utils.trace``)."""
     t = _tables()
     dev = blocks.device
-    clock = [time.perf_counter()]
-
-    def tick(stage):
-        if timings is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[stage] = timings.get(stage, 0.0) + now - clock[0]
-        clock[0] = now
-
     B, N = blocks.shape
-    parsed, lit_sorted, lit_count, lit_hist, code_hists = _parse_phase(
-        blocks, n_valid, S, hash_log)
-    # the batch's one host synchronisation: every count, in one copy
-    counts = torch.cat([lit_hist, lit_count[:, None],
-                        parsed["nseq"][:, None], *code_hists], 1).cpu().numpy()
-    tick("parse")
+    with trace.stage("parse", timings, dev):
+        parsed, lit_sorted, lit_count, lit_hist, code_hists = _parse_phase(
+            blocks, n_valid, S, hash_log)
+        # the batch's one host synchronisation: every count, in one copy
+        counts = torch.cat([lit_hist, lit_count[:, None],
+                            parsed["nseq"][:, None], *code_hists],
+                           1).cpu().numpy()
 
-    if huf_literals:
-        ch, nh, dh_, dl, ok = _build_lit_tables(
-            np.ascontiguousarray(counts[:, :256]), counts[:, 256].copy())
-    else:
-        ch = np.zeros((B, 256), np.uint32)
-        nh = np.zeros((B, 256), np.uint32)
-        dh_ = np.zeros((B, DESC_MAX), np.uint8)
-        dl = np.zeros(B, np.int32)
-        ok = np.zeros(B, bool)
-    hists_np = (np.ascontiguousarray(counts[:, 258:294]),
-                np.ascontiguousarray(counts[:, 294:326]),
-                np.ascontiguousarray(counts[:, 326:379]))
-    seq_t, mode_byte, tbl, tbl_len = _build_seq_tables(
-        hists_np, counts[:, 257].copy(), t)
+    with trace.stage("tables", timings, dev):
+        with trace.stage("tables.lit", timings, plane="encode"):
+            if huf_literals:
+                ch, nh, dh_, dl, ok = _build_lit_tables(
+                    np.ascontiguousarray(counts[:, :256]),
+                    counts[:, 256].copy())
+            else:
+                ch = np.zeros((B, 256), np.uint32)
+                nh = np.zeros((B, 256), np.uint32)
+                dh_ = np.zeros((B, DESC_MAX), np.uint8)
+                dl = np.zeros(B, np.int32)
+                ok = np.zeros(B, bool)
+        with trace.stage("tables.seq", timings, plane="encode"):
+            hists_np = (np.ascontiguousarray(counts[:, 258:294]),
+                        np.ascontiguousarray(counts[:, 294:326]),
+                        np.ascontiguousarray(counts[:, 326:379]))
+            seq_t, mode_byte, tbl, tbl_len = _build_seq_tables(
+                hists_np, counts[:, 257].copy(), t)
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    huf = (up(ch.astype(np.int64)), up(nh.astype(np.int64)), up(dh_),
-           up(dl), up(ok))
-    seq = {name: tuple(up(a) for a in seq_t[name]) for name in ("ll", "of",
-                                                                 "ml")}
-    seq.update(mode=up(mode_byte), tbl=up(tbl), tbl_len=up(tbl_len))
-    tick("tables")
+        with trace.stage("tables.upload", timings):
+            huf = (up(ch.astype(np.int64)), up(nh.astype(np.int64)),
+                   up(dh_), up(dl), up(ok))
+            seq = {name: tuple(up(a) for a in seq_t[name])
+                   for name in ("ll", "of", "ml")}
+            seq.update(mode=up(mode_byte), tbl=up(tbl), tbl_len=up(tbl_len))
 
     SEGMAX = N // 4 + 1
     WQ = (SEGMAX * 11 + 24) // 32 + 2
     # phase 3: the frame rows (the kernel on a card, its plain version on
     # the CPU)
-    out = assemble.assemble(blocks, n_valid, parsed, lit_sorted, lit_count,
-                            huf, seq, W, WQ)
-    tick("assembly")
+    with trace.stage("assembly", timings, dev):
+        out = assemble.assemble(blocks, n_valid, parsed, lit_sorted,
+                                lit_count, huf, seq, W, WQ)
     return out
