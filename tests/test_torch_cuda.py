@@ -870,6 +870,36 @@ def test_encode_on_card_equals_cpu(cuda):
     assert results == recs[:43]
 
 
+def test_native_table_builders_on_card_equal_plain(cuda, monkeypatch):
+    """One 32-lane chunk of Kafka records sections (45-60 KiB of JSON
+    events, the 64 KiB bucket) encoded on the card: the frames built with
+    the native table builders equal those built with the plain Python
+    builders, byte for byte, and decode with the port's decoder and with
+    the benchmark's plain RFC 8878 decoder (zstandard is not installed
+    beside the card)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark.payloads import kafka_json_events
+    from benchmark.reference.zstd_plain import decode_frame
+
+    lengths = 46_080 + 480 * np.arange(32)
+    recs = kafka_json_events.make(lengths, np.random.default_rng(4419000332))
+    timings = {}
+    frames, stats = compress_batch_device(recs, True, device=cuda,
+                                          timings=timings)
+    assert stats == {"device_frames": 32, "host_frames": 0}
+    assert timings["n.table_lanes"] == 32
+    assert timings["n.huf_lanes"] == 32  # every JSON lane takes Huffman
+    monkeypatch.setattr(de, "_build_lit_tables", de._build_lit_tables_plain)
+    monkeypatch.setattr(de, "_build_seq_tables", de._build_seq_tables_plain)
+    plain, _ = compress_batch_device(recs, True, device=cuda)
+    assert frames == plain
+    assert [decompress(f) for f in frames] == recs
+    assert [decode_frame(f) for f in frames] == recs
+
+
 def _parse_equal(blocks, nv, S, hash_log, rounds, compact):
     """parse_lanes (one launch) against parse_plain on the same CUDA
     tensors: every output, exactly.  Returns the kernel's outputs."""

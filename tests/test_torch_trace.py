@@ -30,7 +30,8 @@ DECODE_KEYS = {"plan", "plan.native", "plan.python", "plan.host_seqs",
                "huf", "huf.upload", "fse", "fse.upload", "exec",
                "exec.upload", "materialize", "n.lanes", "n.host_seq_lanes"}
 ENCODE_KEYS = {"pack", "pack.upload", "parse", "tables", "tables.lit",
-               "tables.seq", "tables.upload", "assembly", "materialize"}
+               "tables.seq", "tables.upload", "assembly", "materialize",
+               "n.table_lanes", "n.huf_lanes"}
 # the spans a running profiler records, by plane (host work only)
 DECODE_HOST = {"decode.plan", "decode.plan.native", "decode.plan.python",
                "decode.plan.host_seqs", "decode.exec.upload",
@@ -138,6 +139,8 @@ def test_encode_keys(batch):
     assert [dp.decompress(f) for f in frames] == recs
     assert set(timings) == ENCODE_KEYS
     assert all(v >= 0 for v in timings.values())
+    assert timings["n.table_lanes"] == 32  # one chunk of LANES lanes
+    assert 0 < timings["n.huf_lanes"] <= len(recs)
     _children_inside(timings)
 
 
@@ -234,7 +237,7 @@ DECODE_METRICS = ["decode.plan_native_ms", "decode.plan_python_ms",
                   "decode.host_seq_share", "decode.upload_ms"]
 ENCODE_METRICS = ["encode.lit_tables_ms", "encode.seq_tables_ms",
                   "encode.upload_ms", "encode.pack_ms",
-                  "encode.materialize_ms"]
+                  "encode.materialize_ms", "encode.huf_lane_share"]
 
 
 def test_benchmark_reads_the_decode_spans(batch):
@@ -268,6 +271,8 @@ def test_benchmark_reads_the_encode_spans():
     tables = 1e3 * timings["tables"]
     assert (got["encode.lit_tables_ms"] + got["encode.seq_tables_ms"]
             + 1e3 * timings["tables.upload"]) <= tables
+    assert got["encode.huf_lane_share"] == (
+        100 * timings["n.huf_lanes"] / timings["n.table_lanes"])
     old = {k: timings[k] for k in ("parse", "tables", "assembly")}
     assert all(_load_metric(m).read(_ctx("encode", old, 1)) is None
                for m in ENCODE_METRICS)

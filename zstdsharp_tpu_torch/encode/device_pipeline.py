@@ -57,8 +57,9 @@ def compress_batch_device(records, materialize: bool = False,
     (the records packed into each bucket's arrays; inside it
     "pack.upload", their copy), "parse", "tables" (with "tables.lit",
     "tables.seq" and "tables.upload") and "assembly" of every chunk
-    (``encode_frames_device``), and with materialize=True "materialize"
-    (the frames' copies and each record's bytes).  Under a running
+    (``encode_frames_device``, which also counts "n.table_lanes" and
+    "n.huf_lanes"), and with materialize=True "materialize" (the frames'
+    copies and each record's bytes).  Under a running
     torch.profiler the host stretches of "pack" and "materialize" are
     also recorded as "encode.pack" and "encode.materialize"
     (``utils.trace``).

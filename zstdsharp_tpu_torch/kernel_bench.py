@@ -8,6 +8,7 @@ held to.
                                                [--parse-only]
                                                [--assemble-baseline FILE.cu]
                                                [--assemble-only]
+                                               [--tables-only]
                                                [--out FILE.json]
 
 1. The histogram kernel (``csrc/histogram.cu``) on every shape the main
@@ -74,6 +75,15 @@ time on the calls the decode plane makes; ``capture_parse``,
    (``assemble_passes``' passes, ``pass_cycles``).  ``--assemble-only``
    runs this part alone; ``--parse-only`` leaves it out.
 
+5. The encode plane's host table builders (``tables_bench``): the plain
+   Python builders (``device_encode._build_lit_tables_plain``,
+   ``_build_seq_tables_plain``) and the native ones
+   (``csrc/host_tables.cpp``, one call a chunk), each timed on the host
+   (``perf_counter``) on the counts of one 32-lane chunk of each encode
+   cell's payload (``TABLE_CELLS``, made by the benchmark's generator and
+   parsed by the encode plane), in µs a lane, with their outputs checked
+   equal.  ``--tables-only`` runs this part alone.
+
 Prints what ``nvcc -Xptxas -v`` reports for each source built alone.
 Every time is printed beside the card's name and power limit, and the
 whole result goes to a JSON file (``--out``, by default
@@ -94,7 +104,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops import assemble, device_fse, device_huf, execseq, lz_parse
+from .ops import (assemble, device_encode, device_fse, device_huf, execseq,
+                  lz_parse)
 
 ROOT = Path(__file__).resolve().parent.parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -1251,6 +1262,103 @@ def assemble_ab(data: bytes, dev, others: list) -> dict:
     return res
 
 
+# (cell, configuration, traffic) of the encode cells in BENCHMARK.json
+TABLE_CELLS = (("kafka16k.produce", "kafka_zstd_batch16k",
+                "encode_1024x45k-60k"),
+               ("zfs128k.write", "openzfs_zstd_rec128k", "encode_256x128k"))
+
+
+def table_counts(config: str, traffic: str, seed: int, dev) -> tuple:
+    """The counts the table builders take for the first 32-lane chunk of
+    an encode cell's payload: (lit_hist, lit_count, (ll, of, ml) code
+    histograms, nseq), as ``encode_frames_device`` passes them."""
+    sys.path.insert(0, str(ROOT))
+    from benchmark.gen import make_batches
+
+    from .encode.device_pipeline import compress_batch_device
+
+    bench = ROOT / "benchmark"
+    cfg = json.loads((bench / "configs" / f"{config}.json").read_text())
+    mix = json.loads((bench / "traffic" / f"{traffic}.json").read_text())
+    mix.update(pool_batches=1, records=32)
+    seen = {}
+    lit, seq = device_encode._build_lit_tables, device_encode._build_seq_tables
+
+    def lit_spy(*a):
+        seen.setdefault("lit", a)
+        return lit(*a)
+
+    def seq_spy(*a):
+        seen.setdefault("seq", a)
+        return seq(*a)
+
+    device_encode._build_lit_tables = lit_spy
+    device_encode._build_seq_tables = seq_spy
+    try:
+        compress_batch_device(make_batches(cfg, mix, seed)[0], False,
+                              int(cfg["hash_log"]), device=dev)
+    finally:
+        device_encode._build_lit_tables = lit
+        device_encode._build_seq_tables = seq
+    (lit_hist, lit_count), (hists, nseq, _) = seen["lit"], seen["seq"]
+    return lit_hist, lit_count, hists, nseq
+
+
+def _host_us(fn, reps: int) -> float:
+    """Mean host µs a call over `reps` calls, after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def tables_bench(dev, seed: int = 4419000332, reps: int = 200) -> dict:
+    """The plain and the native table builders on the counts of one chunk
+    of each encode cell (``TABLE_CELLS``), in µs a lane: the plain ones
+    over 3 calls, the native ones over `reps`; every output of the two
+    checked equal first."""
+    de, t = device_encode, device_encode._tables()
+    res = {}
+    for cell, config, traffic in TABLE_CELLS:
+        lit_hist, lit_count, hists, nseq = table_counts(config, traffic,
+                                                        seed, dev)
+        B = lit_hist.shape[0]
+        got = de._build_lit_tables(lit_hist, lit_count)
+        want = de._build_lit_tables_plain(lit_hist, lit_count)
+        sgot = de._build_seq_tables(hists, nseq, t)
+        swant = de._build_seq_tables_plain(hists, nseq, t)
+        same = (all(np.array_equal(g, w) for g, w in zip(got, want))
+                and all(np.array_equal(g, w) for n in ("ll", "of", "ml")
+                        for g, w in zip(sgot[0][n], swant[0][n]))
+                and all(np.array_equal(g, w)
+                        for g, w in zip(sgot[1:], swant[1:])))
+        if not same:
+            raise RuntimeError(f"tables {cell}: native differs from plain")
+        row = {"lanes": B, "huf_lanes": int(got[4].sum()),
+               "literals": int(np.sum(lit_count)),
+               "sequences": int(np.sum(nseq))}
+        for kind, plain, native, args in (
+                ("lit", de._build_lit_tables_plain, de._build_lit_tables,
+                 (lit_hist, lit_count)),
+                ("seq", de._build_seq_tables_plain, de._build_seq_tables,
+                 (hists, nseq, t))):
+            p = _host_us(lambda: plain(*args), 3) / B
+            n = _host_us(lambda: native(*args), reps) / B
+            row[f"{kind}_plain_us_a_lane"] = p
+            row[f"{kind}_native_us_a_lane"] = n
+            row[f"{kind}_speedup"] = p / n
+        res[cell] = row
+        print(f"tables {cell} ({B} lanes, {row['huf_lanes']} Huffman): "
+              f"literal {row['lit_plain_us_a_lane']:.1f} -> "
+              f"{row['lit_native_us_a_lane']:.2f} us a lane "
+              f"({row['lit_speedup']:.0f}x), sequence "
+              f"{row['seq_plain_us_a_lane']:.1f} -> "
+              f"{row['seq_native_us_a_lane']:.2f} us a lane "
+              f"({row['seq_speedup']:.0f}x); outputs equal")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     for k, entry, src in (("huf", "zt_huf_decode", "huf_decode.cu"),
@@ -1272,6 +1380,8 @@ def main(argv=None) -> int:
                          "beside csrc/assemble.cu (repeatable)")
     ap.add_argument("--assemble-only", action="store_true",
                     help="run the assembly kernel's A/B alone")
+    ap.add_argument("--tables-only", action="store_true",
+                    help="time the host table builders alone")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_bench.json",
                     help="where to write the JSON result")
@@ -1285,23 +1395,28 @@ def main(argv=None) -> int:
     name = card()
     print(name)
     t0 = time.perf_counter()
-    data = make_corpus(2 * N_RECORDS * REC_SIZE)
     out = {"card": name}
-    if not args.assemble_only:
-        out["lz_parse"] = parse_ab(data, dev, [(f.stem, f)
-                                               for f in args.parse_baseline])
-    if not args.parse_only:
-        out["assemble"] = assemble_ab(data, dev,
-                                      [(f.stem, f)
-                                       for f in args.assemble_baseline])
     if not (args.parse_only or args.assemble_only):
-        out["histogram"] = hist_ab(data, dev, [(f.stem, f)
-                                               for f in args.hist_baseline])
-        windows = decode_windows(data, dev)
-        for k, files in (("huf", args.huf_baseline),
-                         ("fse", args.fse_baseline)):
-            out[k] = kernel_ab(f"{k}_decode", windows[f"{k}_decode"],
-                               [(f.stem, f) for f in files])
+        out["tables"] = tables_bench(dev)
+    if not args.tables_only:
+        data = make_corpus(2 * N_RECORDS * REC_SIZE)
+        if not args.assemble_only:
+            out["lz_parse"] = parse_ab(data, dev,
+                                       [(f.stem, f)
+                                        for f in args.parse_baseline])
+        if not args.parse_only:
+            out["assemble"] = assemble_ab(data, dev,
+                                          [(f.stem, f)
+                                           for f in args.assemble_baseline])
+        if not (args.parse_only or args.assemble_only):
+            out["histogram"] = hist_ab(data, dev,
+                                       [(f.stem, f)
+                                        for f in args.hist_baseline])
+            windows = decode_windows(data, dev)
+            for k, files in (("huf", args.huf_baseline),
+                             ("fse", args.fse_baseline)):
+                out[k] = kernel_ab(f"{k}_decode", windows[f"{k}_decode"],
+                                   [(f.stem, f) for f in files])
     out["seconds"] = time.perf_counter() - t0
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))

@@ -49,6 +49,13 @@ ctypes binding loaded, so both share one engine image.  It never loads the
 tracked ``native/_ztpy.so``, which links ``native/`` by rpath.  Without
 Python's headers, when the build fails, or with ``ZSTDTPU_NO_EXT`` set, it
 returns None and the ctypes route serves every call.
+
+The encode plane's table builders are the port's own source,
+``zstdsharp_tpu_torch/csrc/host_tables.cpp`` (``zt_build_lit_tables``,
+``zt_build_seq_tables``): ``get_tables_lib`` builds it with g++ into
+``build/host/libzt_tables.<hash>.so`` by the same lock and atomic rename
+(the hash covers the source, the flags and the host) and raises with the
+compiler's error where it cannot.
 """
 
 from __future__ import annotations
@@ -74,6 +81,8 @@ BUILD_DIR = _REPO / "build" / "host"
 CXX_FLAGS = ("-O2", "-march=native", "-shared", "-fPIC", "-std=c++17")
 EXT_SRC = _REPO / "native" / "ztpy.cpp"
 EXT_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+TABLES_SRC = _REPO / "zstdsharp_tpu_torch" / "csrc" / "host_tables.cpp"
+TABLES_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
 class DPlaneCtx(ctypes.Structure):
@@ -97,8 +106,23 @@ class DPlaneCtx(ctypes.Structure):
     )
 
 
+class SeqChannel(ctypes.Structure):
+    """Mirror of ZtSeqChannel (csrc/host_tables.cpp): one sequence
+    channel's code histograms and predefined rows in, its per-lane table
+    rows out (each pointer an array's address)."""
+
+    _fields_ = (
+        [("hist", ctypes.c_void_p)]
+        + [(n, ctypes.c_int64) for n in ("nbins", "nsym", "tlog")]
+        + [(n, ctypes.c_void_p) for n in
+           ("pre_maps", "pre_nbs", "pre_init", "maps", "nbs", "init",
+            "flush")]
+    )
+
+
 _lock = threading.Lock()
 _lib = None
+_tables_lib = None   # csrc/host_tables.cpp, built and loaded
 _lib_file = None     # the engine file get_lib loaded
 _ext_lock = threading.Lock()
 _ext = None          # the _ztpy extension module
@@ -302,6 +326,40 @@ def get_lib() -> ctypes.CDLL:
             fn.restype = res
             fn.argtypes = args
         _lib = lib
+        return lib
+
+
+def tables_lib_path() -> Path:
+    """Where this host's build of the table builders' source goes."""
+    key = hashlib.sha256(TABLES_SRC.read_bytes())
+    key.update(" ".join(TABLES_FLAGS).encode())
+    key.update(f"{platform.node()} {platform.machine()}".encode())
+    return BUILD_DIR / f"libzt_tables.{key.hexdigest()[:16]}.so"
+
+
+def get_tables_lib() -> ctypes.CDLL:
+    """The encode plane's table builders (``csrc/host_tables.cpp``),
+    built on first use and loaded.  Raises RuntimeError with the
+    compiler's error when it cannot be built."""
+    global _tables_lib
+    if _tables_lib is not None:
+        return _tables_lib
+    with _lock:
+        if _tables_lib is not None:
+            return _tables_lib
+        path = tables_lib_path()
+        err = _compile(path, ["g++", *TABLES_FLAGS, str(TABLES_SRC), "-o"])
+        if err is not None:
+            raise RuntimeError(f"the encode plane's table builders "
+                               f"({TABLES_SRC.name}) failed to build:\n{err}")
+        lib = ctypes.CDLL(str(path))
+        i64, vp = ctypes.c_int64, ctypes.c_void_p
+        lib.zt_build_lit_tables.restype = i64
+        lib.zt_build_lit_tables.argtypes = [i64] + [vp] * 7 + [i64]
+        lib.zt_build_seq_tables.restype = i64
+        lib.zt_build_seq_tables.argtypes = [
+            i64, vp, ctypes.POINTER(SeqChannel), i64, vp, vp, vp]
+        _tables_lib = lib
         return lib
 
 

@@ -11,9 +11,10 @@ Three phases per batch of B padded records ``[B, N]``, as the reference:
    byte histogram through ``histogram.histogram_u8`` (the
    ``csrc/histogram.cu`` kernel on a GPU, plain torch on the CPU);
 2. tables (host): one copy of every count to the host -- the batch's only
-   host synchronisation -- then the reference's numpy table builders
-   (canonical Huffman literal tables, fresh/RLE/predefined FSE tables at
-   the default logs), uploaded once;
+   host synchronisation -- then the table builders, one native call each
+   over every lane (``csrc/host_tables.cpp``: canonical Huffman literal
+   tables, fresh/RLE/predefined FSE tables at the default logs), uploaded
+   once;
 3. assembly (device): the FSE state chains, the sequence and 4-stream
    Huffman bitstreams and the frame row, on a GPU in one launch of the
    ``csrc/assemble.cu`` kernel (``assemble.assemble_lanes``) and on the
@@ -26,10 +27,14 @@ dimension of every tensor.  Integer semantics are the reference's with
 JAX's x64 mode off (see ``ops.common``): u32 quantities live in int64
 tensors.  Nothing here synchronises with the host except step 2.
 
-The host builders (``_tables``, ``_symbol_maps``, ``_build_lit_tables``,
-``_build_seq_tables``, ``seq_budget``, ``word_budget``) are copied from
-the reference; they call the port's own host tier (``..entropy``,
-``..constants``).
+The host builders (``_tables``, ``_symbol_maps``, ``seq_budget``,
+``word_budget``, and the table builders' plain versions
+``_build_lit_tables_plain`` and ``_build_seq_tables_plain``) are copied
+from the reference; they call the port's own host tier (``..entropy``,
+``..constants``).  The main path's ``_build_lit_tables`` and
+``_build_seq_tables`` give the plain versions' arrays byte for byte from
+one call of ``zt_build_lit_tables`` and ``zt_build_seq_tables``
+(``native.get_tables_lib``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import native
 from ..entropy import fse, huffman
 from ..utils import trace
 
@@ -288,9 +294,31 @@ DESC_MAX = 160   # serialized Huffman table descriptor cap
 
 def _build_lit_tables(lit_hist: np.ndarray, lit_count: np.ndarray):
     """Host middle phase: canonical Huffman tables per lane from device
-    histograms (HUF_buildCTable/HUF_writeCTable role).  Returns
-    (codes [B,256] u32, nbits [B,256] u32, desc [B,DESC_MAX] u8,
-    desc_len [B] i32, huf_ok [B] bool)."""
+    histograms (HUF_buildCTable/HUF_writeCTable role), every lane in one
+    call of the native ``zt_build_lit_tables``.  Returns (codes [B,256]
+    u32, nbits [B,256] u32, desc [B,DESC_MAX] u8, desc_len [B] i32, huf_ok
+    [B] bool), equal to ``_build_lit_tables_plain``'s."""
+    hist = np.ascontiguousarray(lit_hist, np.int32)
+    count = np.ascontiguousarray(lit_count, np.int32)
+    B = hist.shape[0]
+    if hist.shape != (B, 256) or count.shape != (B,):
+        raise ValueError(f"lit_hist {hist.shape}, lit_count {count.shape}: "
+                         f"want [B, 256] and [B]")
+    codes = np.empty((B, 256), np.uint32)
+    nbits = np.empty((B, 256), np.uint32)
+    desc = np.empty((B, DESC_MAX), np.uint8)
+    desc_len = np.empty(B, np.int32)
+    huf_ok = np.empty(B, bool)
+    native.get_tables_lib().zt_build_lit_tables(
+        B, hist.ctypes.data, count.ctypes.data, codes.ctypes.data,
+        nbits.ctypes.data, desc.ctypes.data, desc_len.ctypes.data,
+        huf_ok.ctypes.data, DESC_MAX)
+    return codes, nbits, desc, desc_len, huf_ok
+
+
+def _build_lit_tables_plain(lit_hist: np.ndarray, lit_count: np.ndarray):
+    """The plain version of ``_build_lit_tables``, a lane at a time
+    through ``entropy.huffman`` (the reference's builder)."""
     B = lit_hist.shape[0]
     codes = np.zeros((B, 256), np.uint32)
     nbits = np.zeros((B, 256), np.uint32)
@@ -324,9 +352,48 @@ TBL_MAX = 128   # per-lane sequence-tables area cap (3 NCounts)
 def _build_seq_tables(hists, nseq: np.ndarray, t):
     """Host middle phase: per-lane FSE tables from device code histograms
     (ZSTD_selectEncodingType + FSE_normalizeCount role, restricted to the
-    DEFAULT table logs so every device shape stays static).  Per channel:
-    fresh FSE (mode 2) when it pays, RLE (mode 1) for single-symbol
-    streams, predefined (mode 0) otherwise."""
+    DEFAULT table logs so every device shape stays static), every lane in
+    one call of the native ``zt_build_seq_tables``.  Per channel: fresh FSE
+    (mode 2) when it pays, RLE (mode 1) for single-symbol streams,
+    predefined (mode 0) otherwise.  Returns ({name: (maps [B,NSYM,TS] i32,
+    nbs [B,NSYM,TS] u8, init [B,NSYM] i32, flush [B] i32)}, mode_byte [B]
+    i32, tbl [B,TBL_MAX] u8, tbl_len [B] i32), equal to
+    ``_build_seq_tables_plain``'s."""
+    ns = np.ascontiguousarray(nseq, np.int32)
+    B = ns.shape[0]
+    chans = (native.SeqChannel * 3)()
+    keep, out = [], {}  # keep: the arrays the channels point into
+    for ci, name in enumerate(("ll", "of", "ml")):
+        st = t[name]
+        h = np.ascontiguousarray(hists[ci], np.int32)
+        pre = [np.ascontiguousarray(st[k], dt) for k, dt in
+               (("maps", np.int32), ("nbs", np.uint8), ("init", np.int32))]
+        nsym, TS = pre[0].shape
+        if h.ndim != 2 or h.shape[0] != B or not 0 < h.shape[1] <= 256:
+            raise ValueError(f"{name} histograms {h.shape}: want [B, <= 256]")
+        rows = (np.empty((B, nsym, TS), np.int32),
+                np.empty((B, nsym, TS), np.uint8),
+                np.empty((B, nsym), np.int32), np.empty(B, np.int32))
+        out[name] = rows
+        keep += [h, *pre]
+        chans[ci] = native.SeqChannel(
+            h.ctypes.data, h.shape[1], nsym, st["tlog"],
+            *(a.ctypes.data for a in pre), *(a.ctypes.data for a in rows))
+    mode_byte = np.empty(B, np.int32)
+    tbl = np.empty((B, TBL_MAX), np.uint8)
+    tbl_len = np.empty(B, np.int32)
+    rc = native.get_tables_lib().zt_build_seq_tables(
+        B, ns.ctypes.data, chans, TBL_MAX, mode_byte.ctypes.data,
+        tbl.ctypes.data, tbl_len.ctypes.data)
+    if rc < 0:
+        raise ValueError(f"lane {-1 - rc}: a fresh FSE table has more "
+                         f"symbols than its channel")
+    return out, mode_byte, tbl, tbl_len
+
+
+def _build_seq_tables_plain(hists, nseq: np.ndarray, t):
+    """The plain version of ``_build_seq_tables``, a lane at a time
+    through ``entropy.fse`` (the reference's builder)."""
     chans = (("ll", 0, 35), ("of", 1, 31), ("ml", 2, 52))
     B = nseq.shape[0]
     mode = np.zeros((B, 3), np.int32)
@@ -430,9 +497,11 @@ def encode_frames_device(blocks: torch.Tensor, n_valid: torch.Tensor,
     under its key, the device synchronised at the phase's end: "parse"
     (the parse kernel and the counts' copy), "tables" (inside it
     "tables.lit" and "tables.seq", the host builders, and
-    "tables.upload", their tables' copies) and "assembly".  Under a
-    running torch.profiler the builders are also recorded as
-    "encode.tables.lit" and "encode.tables.seq" (``utils.trace``)."""
+    "tables.upload", their tables' copies) and "assembly"; and the
+    counters "n.table_lanes" (the lanes the builders took) and
+    "n.huf_lanes" (those given a Huffman literal table).  Under a running
+    torch.profiler the builders are also recorded as "encode.tables.lit"
+    and "encode.tables.seq" (``utils.trace``)."""
     t = _tables()
     dev = blocks.device
     B, N = blocks.shape
@@ -456,6 +525,8 @@ def encode_frames_device(blocks: torch.Tensor, n_valid: torch.Tensor,
                 dh_ = np.zeros((B, DESC_MAX), np.uint8)
                 dl = np.zeros(B, np.int32)
                 ok = np.zeros(B, bool)
+        trace.count("table_lanes", B, timings)
+        trace.count("huf_lanes", int(ok.sum()), timings)
         with trace.stage("tables.seq", timings, plane="encode"):
             hists_np = (np.ascontiguousarray(counts[:, 258:294]),
                         np.ascontiguousarray(counts[:, 294:326]),
