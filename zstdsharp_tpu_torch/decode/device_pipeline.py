@@ -497,10 +497,17 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
     chains resolve at plan time, starting from the dictionary's entropy
     when there is one, and each block records its output offset for the
     dependent-round executor.  Returns an error string to host-route, or
-    None on success."""
+    None on success.
+
+    A planned frame adds to the counters (``utils.trace.count``)
+    "n.mb_lit_bytes" (its compressed blocks' regenerated literal bytes),
+    "n.mb_host_lit_bytes" (those of Huffman sections decoded here on the
+    host, whatever the reason) and "n.mb_treeless_host" (its treeless
+    sections decoded here); a host-routed frame adds nothing."""
     content = int(hdr.frame_content_size)
     ent = _start_entropy(ddict)
     blocks = []
+    lit_bytes = host_lit_bytes = treeless_host = 0
     p = hdr.header_size
     out_off = 0
     while True:
@@ -530,6 +537,7 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
             if lh + (comp if lt >= 2 else 0) > len(payload):
                 return "corrupt: literal section bounds"
             b.lit_regen = regen
+            lit_bytes += regen
             if lt == 0:
                 b.pool_base = plan.pool_add(payload[lh:lh + regen])
                 b.pool_len = regen
@@ -556,6 +564,8 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
                     lits, _ = decode_literals(payload, ent)
                     b.pool_base = plan.pool_add(lits.tobytes())
                     b.pool_len = regen
+                    host_lit_bytes += regen
+                    treeless_host += lt == 3
                 lit_end = lh + comp
             # sequence section: host decode (chains ent + reps)
             rest = payload[lit_end:]
@@ -605,6 +615,9 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
     plan.mb_frames.append({"frame_idx": fi, "content": content,
                            "checksum": cks, "window": wsize,
                            "blocks": blocks})
+    trace.count("mb_lit_bytes", lit_bytes, timings)
+    trace.count("mb_host_lit_bytes", host_lit_bytes, timings)
+    trace.count("mb_treeless_host", treeless_host, timings)
     return None
 
 
@@ -659,7 +672,10 @@ def plan_batch(frames, ddict=None, timings=None) -> DevicePlan:
 
     timings: the stage sink (``utils.trace``): "plan.native" (the native
     planner's call), "plan.python" (each frame the Python planner takes)
-    and, inside it, "plan.host_seqs" (its host sequence decodes)."""
+    and, inside it, "plan.multiblock" (each multi-block frame's block walk)
+    and "plan.host_seqs" (its host sequence decodes); the multi-block
+    frames' counters "n.mb_lit_bytes", "n.mb_host_lit_bytes" and
+    "n.mb_treeless_host" (``_plan_multiblock``)."""
     plan = DevicePlan(nb=_native_ops_for(frames), n_frames=len(frames))
     if ddict is not None:
         plan.window = np.asarray(ddict.content)[-(1 << 17):].tobytes()
@@ -728,7 +744,8 @@ def _plan_python(plan, fi, frame, ddict=None, d_huf=None, timings=None):
     bh = int.from_bytes(frame[p:p + 3], "little")
     last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
     if not last:
-        return _plan_multiblock(plan, fi, frame, hdr, ddict, timings)
+        with trace.stage("plan.multiblock", timings, plane="decode"):
+            return _plan_multiblock(plan, fi, frame, hdr, ddict, timings)
     body_len = bsize if btype != 1 else 1
     tail = 4 if hdr.has_checksum else 0
     if p + 3 + body_len + tail > len(frame):
@@ -917,16 +934,22 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
     timings: when a dict is given, each stage's wall seconds are added
     under its key, the device synchronised at the stage's end: "plan" (the
     planner, ``plan_batch``; inside it "plan.native", "plan.python" and
-    "plan.host_seqs"), "host" (host-routed frames), "huf" and "fse" (the
-    entropy kernels; inside each, "huf.upload" / "fse.upload", their
-    operands' copies), "exec" (the single-block lanes in one launch, after
-    the lanes' sources: inside it "exec.upload", the host sequence rows,
-    the pool, the meta rows and the window rows), "mb_exec" (the
-    multi-block frames' rounds) and "materialize" (``materialize=True``'s
-    copies and checks); counters "n.lanes" (the lanes the executor takes:
-    single-block frames and every block of the multi-block ones) and
-    "n.host_seq_lanes" (those whose sequences the planner decoded on the
-    host).  Keys a batch does not reach are absent.  Under a running
+    "plan.multiblock" and "plan.host_seqs"), "host" (host-routed frames),
+    "huf" and "fse" (the entropy kernels; inside each, "huf.upload" /
+    "fse.upload", their operands' copies), "exec" (the single-block lanes
+    in one launch, after the lanes' sources: inside it "exec.upload", the
+    host sequence rows, the pool, the meta rows and the window rows),
+    "mb_exec" (the multi-block frames' rounds; inside it "mb_exec.upload",
+    each round's meta and start rows) and "materialize"
+    (``materialize=True``'s copies and checks); counters "n.lanes" (the
+    lanes the executor takes: single-block frames and every block of the
+    multi-block ones) and "n.host_seq_lanes" (those whose sequences the
+    planner decoded on the host); with multi-block frames, "n.mb_frames",
+    "n.mb_blocks", "n.mb_groups" and "n.mb_rounds" (the executor's
+    dependent batches and their rounds), and the planner's literal
+    counters "n.mb_lit_bytes", "n.mb_host_lit_bytes" and
+    "n.mb_treeless_host" (``plan_batch``).  Keys a batch does not reach
+    are absent.  Under a running
     torch.profiler the planner's spans are also recorded as "decode.plan",
     "decode.plan.native", ... (``utils.trace``).
     """
@@ -937,6 +960,10 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
     trace.count("lanes", len(plan.blocks) + sum(
         len(f["blocks"]) for f in plan.mb_frames), timings)
     trace.count("host_seq_lanes", len(plan.host_seqs), timings)
+    if plan.mb_frames:
+        trace.count("mb_frames", len(plan.mb_frames), timings)
+        trace.count("mb_blocks", sum(len(f["blocks"])
+                                     for f in plan.mb_frames), timings)
     nb = plan.nb
     with trace.stage("host", timings if plan.host_routed else None, device):
         host_results = _host_decode(frames, plan.host_routed, ddict)
@@ -1016,6 +1043,7 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
     with trace.stage("mb_exec", timings if plan.mb_frames else None, device):
         for group in _mb_groups(plan.mb_frames):
             F = len(group)
+            trace.count("mb_groups", 1, timings)
             Wb = _bucket(max(f["window"] for f in group), _MBW_BUCKETS)
             Cb = _bucket(max(f["content"] for f in group), _MBC_BUCKETS)
             n_rounds = max(len(f["blocks"]) for f in group)
@@ -1027,6 +1055,7 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
                 acc[:, Wb - len(plan.window):Wb] = torch.frombuffer(
                     bytearray(plan.window), dtype=torch.uint8).to(device)
             group_bad = torch.zeros(F, dtype=torch.int32, device=device)
+            trace.count("mb_rounds", n_rounds, timings)
             for r in range(n_rounds):
                 # one upload a round: the meta rows, then each lane's window
                 # start and output start.  Lane k's window is the Wb bytes
@@ -1046,7 +1075,8 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
                     blocks, np.minimum(out_off + len(plan.window), Wb))
                 starts[ks] = out_off
                 starts[F:] = Wb + starts[:F]
-                t = torch.from_numpy(buf).to(device)
+                with trace.stage("mb_exec.upload", timings):
+                    t = torch.from_numpy(buf).to(device)
                 _, bad = _fused_decode(
                     t[:F * 12].view(F, 12), src, S, O_max, acc,
                     win_start=t[F * 12:F * 13], W=Wb, out=acc,

@@ -55,7 +55,9 @@ def parse_frame_header(src: bytes) -> FrameHeader:
     check(len(src) >= C.ZSTD_FRAMEHEADERSIZE_MIN, ZstdErrorCode.srcSize_wrong)
     magic = int.from_bytes(src[0:4], "little")
     check(magic == C.ZSTD_MAGICNUMBER, ZstdErrorCode.prefix_unknown)
-    fhd = src[4]
+    # the descriptor bytes as Python ints: a numpy uint8 would keep the
+    # window's shift in 8 bits, so 1 << (10 + exponent) would read 0
+    fhd = int(src[4])
     dict_id_code = fhd & 3
     checksum_flag = (fhd >> 2) & 1
     check((fhd >> 3) & 1 == 0, ZstdErrorCode.frameParameter_unsupported, "reserved bit set")
@@ -65,7 +67,7 @@ def parse_frame_header(src: bytes) -> FrameHeader:
     pos = 5
     if not single_segment:
         check(len(src) > pos, ZstdErrorCode.srcSize_wrong)
-        wd = src[pos]
+        wd = int(src[pos])
         exponent = wd >> 3
         mantissa = wd & 7
         window_log = 10 + exponent
