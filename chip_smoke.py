@@ -33,6 +33,14 @@ Phases, each printed on its own line:
      and its serial floor: the window's longest lane alone, checked and
      timed through the raw launcher (``serial_floor_ms``);
   3. the same for the FSE kernel (``kernel_bench.fse_work``);
+ 3a. the FSE kernel again, on the window the native planner packs for 256
+     records of 128 KiB of the benchmark's silesia_mix payload at level 3
+     (the zfs128k.read cell's content, seed 4419000302; through
+     tests/torch_data/wide_frames.py), whose lanes' words pass the
+     reference's 2,048-word window: the same checks and times, the
+     window's shape and bound printed beside phase 3's, then the frames
+     through ``unwrap_many_device``: byte-exact, no frame host-routed, no
+     sequences decoded on the host, one FSE launch;
  3b. lz_exec: the LZ executor kernel (``csrc/lz_exec.cu``) against its
      plain versions, rows byte for byte and per-lane flags, on every call
      the decode plane makes to its entry ``execseq.execute_lanes``
@@ -167,9 +175,10 @@ Phases, each printed on its own line:
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel's "launches" in the JSON line sums them.
-The script imports the port, ``bench.make_corpus`` (a data generator) and
-the loader of the committed dictionary sets only: nothing of JAX or of the
-JAX package.
+The script imports the port, ``bench.make_corpus`` (a data generator), the
+loader of the committed dictionary sets and tests/torch_data/wide_frames.py
+(the benchmark's silesia_mix payload) only: nothing of JAX or of the JAX
+package.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one CUDA device and exits non-zero, printing no result, when there
@@ -189,6 +198,7 @@ ROOT = Path(__file__).resolve().parent
 SILESIA_BYTES = 211_938_580
 REC_SIZE = 24 << 10
 N_RECORDS = 256
+WIDE_SEED = 4419000302  # phase 3a's silesia_mix records
 ENC_REC_SIZE = 16 << 10
 
 
@@ -280,7 +290,9 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
     operations) from its operands.  ms times the wrapper, as for every
     kernel; launcher_ms and serial_floor_ms time the raw launcher (the
     wrapper's host work left out) on the window and on its longest lane
-    alone."""
+    alone.  The plain version runs once, on the window (plain_ms times
+    that call on the host clock): its step loop takes about 3 ms a step
+    on an H100, so its rows also check the longest lane."""
     import torch
 
     from zstdsharp_tpu_torch import _build
@@ -290,8 +302,10 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
     got = outputs_of(mod.decode_lanemajor(ops))
     torch.cuda.synchronize()
     t_len = got[0].shape[1]
+    t0 = time.perf_counter()
     want = outputs_of(mod.decode_plain(*args, t_len))
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     live = (torch.arange(t_len, device=got[0].device)[None, :]
             < ops[mask_key].long()[:, None])
     err = max(float((g.long() - w.long()).abs().masked_select(live).max())
@@ -306,14 +320,13 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
     lane = one_lane(ops, longest, mask_key)
     run1, outs1 = launcher(_build.load(), name, lane)
     run1()
-    want1 = outputs_of(mod.decode_plain(*(lane[k] for k in mod._OPERANDS),
-                                        outs1[0].shape[1]))
     torch.cuda.synchronize()
-    _check(all(torch.equal(a, b) for a, b in zip(outs1, want1)),
+    t1 = outs1[0].shape[1]
+    _check(t1 <= t_len and all(torch.equal(a[0], b[longest, :t1])
+                               for a, b in zip(outs1, want)),
            f"{name} kernel equals its plain version on the longest lane")
     floor_ms = _gpu_ms(run1, 20)
     n_max = int(ops[mask_key][longest])
-    plain_ms = _gpu_ms(lambda: mod.decode_plain(*args, t_len), 1)
     bound_ms, bound_by = bound(*work(ops, t_len))
     print(f"phase {name}: kernel == plain over {int(live.sum())} entries of "
           f"{len(got)} x {tuple(got[0].shape)} (max_abs_err {err}); "
@@ -325,6 +338,54 @@ def _kernel_phase(name, mod, ops, outputs_of, mask_key, work, card):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "launcher_ms": launcher_ms, "serial_floor_ms": floor_ms}
+
+
+def _fse_wide_phase(dev, card):
+    """Phase 3a: the FSE kernel on the zfs128k.read content's window, then
+    its frames end to end.  Returns the kernel's fields there."""
+    import torch
+
+    from zstdsharp_tpu_torch.decode import device_pipeline as dp
+    from zstdsharp_tpu_torch.decode.frame import Decompressor
+    from zstdsharp_tpu_torch.encode.frame import compress
+    from zstdsharp_tpu_torch.kernel_bench import fse_work
+    from zstdsharp_tpu_torch.ops import device_fse as df
+
+    sys.path.insert(0, str(ROOT / "tests" / "torch_data"))
+    from wide_frames import silesia_records
+
+    recs = silesia_records(N_RECORDS, WIDE_SEED)
+    frames = [compress(r, 3) for r in recs]
+    plan = dp.plan_batch(frames)
+    wide, n_fse = plan.nb.n_fse_wide, plan.nb.n_fse
+    ops = dp.ops_to_device(plan.nb.fse_ops(0), dev)
+    dp._release_ops(plan.nb, None)
+    _check(not plan.host_routed and not plan.host_seqs,
+           "the 128 KiB records plan with no host route or host sequences")
+    _check(wide > 0 and ops["words"].shape[1] > df.REF_MAX_W,
+           "the 128 KiB window passes the reference's 2,048 words")
+    fields = _kernel_phase("fse_decode", df, ops, lambda o: o, "nseq",
+                           fse_work, card)
+    _reset_counts()
+    outs, lens, host = Decompressor().unwrap_many_device(frames, dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _counts().items() if k in DECODE_KERNELS}
+    _check(_frame_bytes(len(frames), outs, lens, host) == recs,
+           "the 128 KiB records decode byte-exact")
+    _check(not host, "no 128 KiB record is host-routed")
+    _check(launches["fse_decode"] == 1 and launches["lz_exec"] > 0,
+           f"one FSE launch for the 128 KiB records {launches}")
+    print(f"phase fse_decode 128k: {len(frames)} silesia_mix records of "
+          f"128 KiB at level 3 (seed {WIDE_SEED}): window "
+          f"{tuple(ops['words'].shape)} words, {wide} of {n_fse} lanes past "
+          f"{df.REF_MAX_W} words, t_max {ops['t_max']}, bound "
+          f"{fields['bound_ms']:.5f} ms; unwrap_many_device byte-exact, "
+          f"launches {launches}, on {card}")
+    return {k: fields[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "launcher_ms",
+                                   "serial_floor_ms")} | {
+        "words": list(ops["words"].shape), "t_max": ops["t_max"],
+        "wide_lanes": wide, "launches": launches}
 
 
 def _lz_equal(call, name):
@@ -1550,6 +1611,9 @@ def main() -> int:
                         huf_work, card)
     fse = _kernel_phase("fse_decode", df, fops, lambda o: o, "nseq",
                         fse_work, card)
+    print(f"phase fse_decode window: {tuple(fops['words'].shape)} words, "
+          f"t_max {fops['t_max']}, bound {fse['bound_ms']:.5f} ms")
+    fse["window_128k"] = _fse_wide_phase(dev, card)
     lz = _lz_phase(frames, extra_frames[:2], big, dev, card)
     _corrupt_phase(data, dev, card)
 

@@ -5,14 +5,17 @@ cards or more, the kernels launched from a worker thread on the second
 card and the stream codec over a mesh of cards.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import only the
-port (and the repository's data generator ``bench.make_corpus``): neither
+port (and the repository's data generator ``bench.make_corpus`` and the
+benchmark's silesia_mix payload, through tests/torch_data): neither
 JAX, nor the JAX package, nor zstandard, so they also run on a machine that
 has none of them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,6 +50,9 @@ from torch_parse_cases import DIAGONAL_CASES, diagonal_rows
 from torch_assemble_cases import (CHAIN_NSEQ, assemble_call,
                                   assemble_records, chain_case_call,
                                   pad_records, roll_back)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_data"))
+from wide_frames import silesia_records  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -207,6 +213,75 @@ def test_fse_kernel_random_window(cuda, nl, wb, seed):
     _fse_equal_plain(ops)
 
 
+@pytest.fixture(scope="module")
+def silesia_frames():
+    """Level-3 frames of 128 KiB records of the benchmark's silesia_mix
+    payload (the zfs128k cells' content), each with its FSE lane's word
+    count (0 without one)."""
+    out = []
+    for f in (compress(r, 3) for r in silesia_records(64, 4419000302)):
+        plan = dp.plan_batch([f])
+        ops = plan.nb.fse_ops(0) if plan.nb.n_fse else None
+        dp._release_ops(plan.nb, None)
+        assert not plan.host_seqs
+        out.append((f, 0 if ops is None else ops["words"].shape[1]))
+    return out
+
+
+@pytest.mark.parametrize("wb", [3072, 4096, 6144, 8192])
+def test_fse_kernel_planner_wide_windows(cuda, silesia_frames, wb):
+    """The planner's window of 128 KiB silesia_mix records at level 3
+    whose widest lane takes each bucket past the reference's 2,048 words,
+    with narrower lanes beside them: up to 12,800 sequences a lane."""
+    frames = [f for f, w in silesia_frames if w == wb]
+    assert frames, wb
+    frames += [f for f, w in silesia_frames if 0 < w < wb][:32]
+    ops = _window(frames, cuda)
+    assert ops["words"].shape[1] == wb
+    _fse_equal_plain(ops)
+
+
+def _fse_smem(g: int, wb: int) -> int:
+    """csrc/fse_decode.cu smem_bytes: a block's dynamic shared memory."""
+    return 4 * (g * (2 * df.NSTATES + df.NSTATES_OF + wb + 8)
+                + 5 * 3 * 32 * (g | 1))
+
+
+FSE_SMEM_MAX = 232448 - 1024  # csrc/fse_decode.cu kSmemMax
+
+
+@pytest.mark.parametrize("nl,wb,t_max,seed", [
+    (256, 3072, 4096, 6), (256, 4096, 4096, 7), (256, 6144, 4096, 8),
+    (256, 8192, 4096, 9), (800, 7794, 1 << 14, 10)])
+def test_fse_kernel_wide_random_window(cuda, nl, wb, t_max, seed):
+    """Random tables, states and words at the buckets past 2,048 words,
+    lane 0 of t_max sequences: the plain version's values.  At Wb 7,794
+    and 800 lanes the launcher lowers G from ceil(800 / SMs) >= 7 to 6
+    lanes a block, whose shared memory is 16 B under the most a block may
+    take, and lane 0 has 16,384 sequences, the top S bucket (the plain
+    version's step loop makes that case about a minute on an H100)."""
+    if nl == 800:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert -(-nl // sms) >= 7
+        assert _fse_smem(6, wb) <= FSE_SMEM_MAX < _fse_smem(7, wb)
+        assert FSE_SMEM_MAX - _fse_smem(6, wb) == 16
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, lo=-2**31, hi=2**31):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).to(cuda)
+
+    st = rand(nl, 8)
+    st[:, 0] = rand(nl, lo=-64, hi=32 * wb + 64)
+    st[1::4, 4:7] = rand(len(range(1, nl, 4)), 3, lo=-5, hi=600)
+    nseq = rand(nl, lo=-3, hi=t_max)
+    nseq[0] = t_max
+    ops = {"words": rand(nl, wb), "ll": rand(nl, df.NSTATES),
+           "of": rand(nl, df.NSTATES_OF), "ml": rand(nl, df.NSTATES),
+           "st": st, "nseq": nseq, "t_max": t_max}
+    _fse_equal_plain(ops)
+
+
 def _huf_equal_plain(ops):
     """Launch the Huffman kernel once on `ops`, synchronise, hold it
     against the plain version; the rows are zero past each lane's count."""
@@ -348,10 +423,6 @@ def test_pipeline_on_card_equals_cpu(cuda):
 
 def _dict_sets():
     """tests/torch_data/dict_sets.py, the committed dictionary frames."""
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_data"))
     import dict_sets
 
     return dict_sets

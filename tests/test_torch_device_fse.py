@@ -157,6 +157,27 @@ def test_pack_table_and_constants_match_reference():
         assert df.bucket_w(min(t, 2048)) == ref.bucket_w(min(t, 2048))
 
 
+@pytest.mark.parametrize("w,wb", [(2048, 2048), (2049, 3072), (3073, 4096),
+                                  (4097, 6144), (6145, 8192), (8192, 8192)])
+def test_word_buckets_past_the_reference_window(w, wb):
+    """Up to the reference's window the buckets are its own (above); past
+    it the port's run to MAX_W, 32 KiB of words."""
+    assert df.REF_MAX_W == ref.MAX_W < df.MAX_W == 8192
+    assert df.bucket_w(w) == wb
+
+
+def test_window_takes_its_widest_lane_bucket():
+    """A window uploads [lanes, the bucket of its widest lane] words, not
+    the pooled rows' MAX_W."""
+    plan = plan_batch(_frames())
+    nb = plan.nb
+    w = int(nb._fse["fse_wlen"][:nb.n_fse].max())
+    words = nb.fse_ops(0)["words"]
+    rows = nb._fse["fse_words"].shape[1]
+    _release_ops(nb, None)
+    assert words.shape[1] == df.bucket_w(w) < rows == df.MAX_W
+
+
 @pytest.mark.parametrize("fault", ["dtype", "shape", "layout", "device",
                                    "no_kernel_device"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(planned, fault):

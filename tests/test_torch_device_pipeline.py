@@ -23,9 +23,11 @@ from zstdsharp_tpu_torch.decode import device_pipeline as dp
 from zstdsharp_tpu_torch.decode.frame import Decompressor
 from zstdsharp_tpu_torch.dictionary import parse_dictionary
 from zstdsharp_tpu_torch.errors import ZstdError, ZstdErrorCode
+from zstdsharp_tpu_torch.ops import device_fse as df
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_data"))
 import dict_sets  # noqa: E402
+from wide_frames import silesia_records, wide_sequence_frame  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -149,22 +151,21 @@ def test_multiblock_frames_run_as_dependent_rounds():
 
 
 def test_oversized_sections_take_the_python_planner():
-    """Streams beyond the kernels' 8 KB envelope: the native planner hands
-    the frame to the Python planner, which host-decodes Huffman literals
-    into the raw pool and sequences into host rows."""
+    """Streams beyond the kernels' windows (Huffman 8 KB, FSE 32 KB): the
+    native planner hands the frame to the Python planner, which
+    host-decodes Huffman literals into the raw pool and sequences into
+    host rows."""
     r = np.random.default_rng(1)
     lits = bytes(r.integers(48, 88, 60_000, dtype=np.uint8))
-    mix = bytearray(_records(1, 40_000, seed=2)[0])
-    for k in range(0, len(mix), 7):
-        mix[k] = int(r.integers(48, 90))
-    frames = [compress(lits, 1), compress(bytes(mix), 1)]
+    wide, wide_frame = wide_sequence_frame(2)
+    frames = [compress(lits, 1), wide_frame]
     plan = dp.plan_batch(frames)
     dp._release_ops(plan.nb, None)
     assert not plan.host_routed
     assert (plan.blocks[0].lit_kind, plan.blocks[0].seq_kind) == (0, 0)
     assert plan.blocks[1].seq_kind == 2 and plan.host_seqs
     results, stats = _decode(frames)
-    assert results == [lits, bytes(mix)]
+    assert results == [lits, wide]
     assert stats == {"device_frames": 2, "host_frames": 0}
 
 
@@ -374,6 +375,44 @@ def test_dictionary_frames_equal_reference(level):
     outs, lens, host = _equal_reference(frames, d.as_bytes())
     assert not host
     assert _bytes_of(len(frames), outs, lens, host) == want
+
+
+def test_dictionary_batch_packs_wide_fse_lanes(monkeypatch):
+    """The Python planner (every frame of a dictionary batch) packs a
+    128 KiB record's sequence bitstream of 2,049-8,192 words, past the
+    reference's window and inside the port's, as an FSE kernel lane
+    through ``pack_fse``, for a frame written with the dictionary and a
+    plain one; both decode byte-exact on the CPU."""
+    d, _ = _dict_case()
+    record = silesia_records(16, 1)[0]
+    frames = [zstandard.ZstdCompressor(level=3, dict_data=d).compress(record),
+              compress(record, 3)]
+    packed = []
+    pack_fse = dp._NativeOps.pack_fse
+
+    def spy(self, payload, *args):
+        packed.append(len(payload))
+        return pack_fse(self, payload, *args)
+
+    monkeypatch.setattr(dp._NativeOps, "pack_fse", spy)
+    ddict = parse_dictionary(d.as_bytes())
+    timings = {}
+    plan = dp.plan_batch(frames, ddict, timings)
+    wlen = plan.nb._fse["fse_wlen"][:plan.nb.n_fse].tolist()
+    dp._release_ops(plan.nb, None)
+    assert "plan.native" not in timings and "plan.host_seqs" not in timings
+    assert not plan.host_routed and not plan.host_seqs
+    assert [b.seq_kind for b in plan.blocks] == [1, 1]
+    assert len(packed) == 2 and all(
+        df.REF_MAX_W * 4 < n <= df.MAX_W * 4 for n in packed)
+    assert all(df.REF_MAX_W < w <= df.MAX_W for w in wlen)
+    timings = {}
+    results, stats = dp.decode_batch_device(frames, True, ddict,
+                                            device=CPU, timings=timings)
+    assert results == [record, record]
+    assert stats == {"device_frames": 2, "host_frames": 0}
+    assert timings["n.fse_wide_lanes"] == 2
+    assert timings["n.host_seq_lanes"] == 0
 
 
 def test_treeless_literals_decode_on_device():

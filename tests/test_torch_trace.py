@@ -25,10 +25,13 @@ from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tests" / "torch_data"))
+from wide_frames import silesia_records, wide_sequence_frame  # noqa: E402
 
 DECODE_KEYS = {"plan", "plan.native", "plan.python", "plan.host_seqs",
                "huf", "huf.upload", "fse", "fse.upload", "exec",
-               "exec.upload", "materialize", "n.lanes", "n.host_seq_lanes"}
+               "exec.upload", "materialize", "n.lanes", "n.host_seq_lanes",
+               "n.fse_wide_lanes"}
 ENCODE_KEYS = {"pack", "pack.upload", "parse", "tables", "tables.lit",
                "tables.seq", "tables.upload", "assembly", "materialize",
                "n.table_lanes", "n.huf_lanes"}
@@ -45,8 +48,7 @@ SINK_ONLY = {"decode.huf", "decode.huf.upload", "decode.fse",
 
 
 def _text(n, seed):
-    """Words of a 400-word vocabulary: at 32 KB its level-3 frame's
-    sequence bitstream is wider than the FSE kernel's window."""
+    """Words of a 400-word vocabulary."""
     vocab = np.random.default_rng(1)
     words = [bytes(vocab.integers(97, 123, int(vocab.integers(3, 9)),
                                   dtype=np.uint8)) + b" " for _ in range(400)]
@@ -58,8 +60,11 @@ def _text(n, seed):
 def batch():
     """Six frames the native planner takes and one whose sequences the
     Python planner decodes on the host."""
-    records = [_text(3000, s) for s in range(6)] + [_text(1 << 15, 6)]
+    records = [_text(3000, s) for s in range(6)]
     frames = [compress(r, 3) for r in records]
+    wide = wide_sequence_frame()
+    records.append(wide[0])
+    frames.append(wide[1])
     plan = dp.plan_batch(frames)
     dp._release_ops(plan.nb, None)
     assert 0 < len(plan.host_seqs) < len(plan.blocks)
@@ -94,7 +99,30 @@ def test_wide_frame_passes_the_fse_window(batch):
     plan = dp.plan_batch(frames[-1:])
     dp._release_ops(plan.nb, None)
     assert plan.host_seqs and plan.blocks[0].seq_kind == 2
+    assert plan.blocks[0].n_seq <= dp._S_BUCKETS[-1]
     assert len(frames[-1]) > df.MAX_W * 4
+
+
+def test_wide_lane_plans_natively_and_decodes():
+    """Record 0 of seed 1's first cycle of the benchmark's silesia_mix
+    payload: 128 KiB whose level-3 frame's sequence bitstream is 2,104
+    words (4,258 sequences), past the reference's window and inside the
+    port's."""
+    record = silesia_records(16, 1)[0]
+    frame = compress(record, 3)
+    timings = {}
+    plan = dp.plan_batch([frame], timings=timings)
+    wb = plan.nb.fse_ops(0)["words"].shape[1]
+    dp._release_ops(plan.nb, None)
+    assert "plan.python" not in timings and not plan.host_routed
+    assert plan.blocks[0].seq_kind == 1 and not plan.host_seqs
+    assert df.REF_MAX_W < wb <= df.MAX_W
+    timings = {}
+    res, stats = dp.decode_batch_device([frame], True, device="cpu",
+                                        timings=timings)
+    assert res == [record] and stats["device_frames"] == 1
+    assert timings["n.fse_wide_lanes"] == 1
+    assert timings["n.host_seq_lanes"] == 0
 
 
 def test_decode_keys_and_counters(batch):
@@ -105,6 +133,7 @@ def test_decode_keys_and_counters(batch):
     assert res == records and stats["host_frames"] == 0
     assert set(timings) == DECODE_KEYS
     assert timings["n.host_seq_lanes"] == len(plan.host_seqs) == 1
+    assert timings["n.fse_wide_lanes"] == 0
     assert timings["n.lanes"] == len(plan.blocks) == len(frames)
     assert all(v >= 0 for v in timings.values())
     _children_inside(timings)
@@ -127,6 +156,7 @@ def test_decode_native_batch_has_no_python_span(batch):
     dp.decode_batch_device(frames[:6], device="cpu", timings=timings)
     assert "plan.python" not in timings and "plan.host_seqs" not in timings
     assert timings["n.host_seq_lanes"] == 0 and timings["n.lanes"] == 6
+    assert timings["n.fse_wide_lanes"] == 0
     _children_inside(timings)
 
 
@@ -287,8 +317,11 @@ def test_card_copies_no_program_span_to_the_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    records = [_text(3000, s) for s in range(40)] + [_text(1 << 15, 6)]
+    records = [_text(3000, s) for s in range(40)]
     frames = [compress(r, 3) for r in records]
+    wide = wide_sequence_frame()
+    records.append(wide[0])
+    frames.append(wide[1])
     recs = _records(40, 16000)
     dp.decode_batch_device(frames, True, device=dev)  # builds, warms
     compress_batch_device(recs, True, device=dev)

@@ -34,9 +34,9 @@
 //
 // * Few lanes per block, spread over the SMs.  A block takes G lanes,
 //   G = ceil(NL / SMs) clipped to [1, 16] and lowered until the block's
-//   shared memory fits 227 KB (every bucket up to MAX_W = 2048 words fits
-//   at G = 14 or more); 256 lanes become 128 blocks of 2 lanes.  No lane
-//   takes another code path for its size.
+//   shared memory fits 227 KB (every bucket up to MAX_W = 8192 words fits
+//   at G = 5 or more, up to 2048 words at G = 15); 256 lanes become 128
+//   blocks of 2 lanes.  No lane takes another code path for its size.
 // * The lane's working set in shared memory.  The block copies its lanes'
 //   three tables and live stream words into dynamic shared memory with
 //   cp.async (every copy in flight at once), then rewrites each table

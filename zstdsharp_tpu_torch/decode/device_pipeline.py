@@ -27,8 +27,10 @@ planner (``zt_dplane_*`` in native/zstdtpu_core.cpp, bound by the port's
 ``native``) packs lane-major operands into pooled numpy buffers
 (``_NativeOps``), and the plan records (``_BlockPlan``, ``DevicePlan``),
 the header probe ``scan_eligibility``, the shape buckets and the caps
-mirror the reference's.  The reference's JAX upload fence is a
-``torch.cuda.Event``.
+mirror the reference's, but for the FSE kernel's word window
+(``ops.device_fse.MAX_W``, 32 KiB where the reference's is 8 KiB), which
+holds a 128 KB block's sequence bitstream.  The reference's JAX upload
+fence is a ``torch.cuda.Event``.
 
 Coverage is the reference's envelope: single-block frames up to 128 KB and
 multi-block frames up to 4 MB (as dependent execution rounds) run on the
@@ -318,6 +320,11 @@ class _NativeOps:
             huf_nsym=(), huf_wlen=()), old)
 
     def _alloc_fse(self, cap, old=None):
+        # rows of MAX_W words, 32 MiB for 1,024 lanes: np.zeros maps them
+        # lazily, so a batch pays only for the pages its lanes write; a
+        # window uploads its widest lane's bucket (``fse_ops``), gathered
+        # from the rows when that is narrower than they are (on a card into
+        # pinned memory, ``ops_to_device``)
         self._fse = self._alloc_rows("fse", cap, dict(
             fse_words=(self.FSE_MAXW,), fse_ll=(df.NSTATES,),
             fse_of=(df.NSTATES_OF,), fse_ml=(df.NSTATES,), fse_logs=(3,),
@@ -410,6 +417,12 @@ class _NativeOps:
     @property
     def n_fse(self):
         return int(self.ctx.n_fse)
+
+    @property
+    def n_fse_wide(self) -> int:
+        """FSE lanes whose words pass the reference's window
+        (``ops.device_fse.REF_MAX_W``)."""
+        return int((self._fse["fse_wlen"][:self.n_fse] > df.REF_MAX_W).sum())
 
     def pool_bytes(self) -> bytes:
         return self._pool[:int(self.ctx.pool_off)].tobytes()
@@ -724,10 +737,16 @@ def _plan_or_route(plan, fi, frame, ddict=None, d_huf=None,
 
 def _plan_python(plan, fi, frame, ddict=None, d_huf=None, timings=None):
     """Plan one frame in Python: a frame of a dictionary batch, a
-    multi-block frame, or a single-block frame whose streams exceed the
-    native planner's envelope.  `d_huf` is the dictionary's Huffman
-    (weights, tableLog) for treeless sections.  Returns a host-route
-    reason or None."""
+    multi-block frame, or a single-block frame outside the native
+    planner's envelope.  A sequence section takes an FSE kernel lane when
+    its bitstream fits the kernel's window (``ops.device_fse.MAX_W``
+    words, 32 KiB: every 128 KB block's at usual ratios), its OF table
+    log is 8 or less and it has at most the top S bucket's sequences;
+    else it is decoded here on the host ("plan.host_seqs").  A Huffman
+    stream over ``ops.device_huf.MAX_W`` words (8 KiB) is decoded here
+    into the pool.  `d_huf` is the dictionary's Huffman (weights,
+    tableLog) for treeless sections.  Returns a host-route reason or
+    None."""
     hdr = parse_frame_header(np.frombuffer(frame, np.uint8))
     if hdr.frame_content_size is None or hdr.frame_content_size < 0:
         return "no content size"
@@ -819,12 +838,26 @@ def _plan_python(plan, fi, frame, ddict=None, d_huf=None, timings=None):
 
 def ops_to_device(ops: dict, device) -> dict:
     """Copy a numpy operand window (``_NativeOps.huf_ops``/``fse_ops``) to
-    int32 tensors on `device`.  The copy is synchronous and never aliases
-    the pooled numpy buffers, so they may be rewritten as soon as it
-    returns."""
-    return {k: (v if k == "t_max" else torch.from_numpy(
-        np.ascontiguousarray(v, np.int32)).to(device, copy=True))
-        for k, v in ops.items()}
+    int32 tensors on `device`.  The copy never aliases the pooled numpy
+    buffers, so they may be rewritten as soon as it returns.  A contiguous
+    operand is copied as it is.  On a card a strided one (a window's words
+    when their bucket is narrower than the pooled rows) is gathered into
+    pinned host memory and copied without a wait, since a pageable copy
+    would gather it into a fresh array first: torch's pinned-memory cache
+    hands that block out again only once the copy has completed."""
+    pinned = torch.device(device).type == "cuda"
+    out = {}
+    for k, v in ops.items():
+        if k == "t_max":
+            out[k] = v
+        elif v.flags.c_contiguous or not pinned:
+            out[k] = torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(
+                device, copy=True)
+        else:
+            stage = torch.empty(v.shape, dtype=torch.int32, pin_memory=True)
+            np.copyto(stage.numpy(), v, casting="unsafe")
+            out[k] = stage.to(device, non_blocking=True)
+    return out
 
 
 def _fused_decode(meta, src, S, O, window, **at):
@@ -944,12 +977,14 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
     (``materialize=True``'s copies and checks); counters "n.lanes" (the
     lanes the executor takes: single-block frames and every block of the
     multi-block ones) and "n.host_seq_lanes" (those whose sequences the
-    planner decoded on the host); with multi-block frames, "n.mb_frames",
-    "n.mb_blocks", "n.mb_groups" and "n.mb_rounds" (the executor's
-    dependent batches and their rounds), and the planner's literal
-    counters "n.mb_lit_bytes", "n.mb_host_lit_bytes" and
-    "n.mb_treeless_host" (``plan_batch``).  Keys a batch does not reach
-    are absent.  Under a running
+    planner decoded on the host); with FSE kernel lanes,
+    "n.fse_wide_lanes" (those whose bitstream passes the reference's
+    2,048-word window, ``ops.device_fse.REF_MAX_W``); with multi-block
+    frames, "n.mb_frames", "n.mb_blocks", "n.mb_groups" and "n.mb_rounds"
+    (the executor's dependent batches and their rounds), and the
+    planner's literal counters "n.mb_lit_bytes", "n.mb_host_lit_bytes"
+    and "n.mb_treeless_host" (``plan_batch``).  Keys a batch does not
+    reach are absent.  Under a running
     torch.profiler the planner's spans are also recorded as "decode.plan",
     "decode.plan.native", ... (``utils.trace``).
     """
@@ -989,6 +1024,7 @@ def decode_batch_device(frames, materialize: bool = False, ddict=None, *,
 
     fse_rows, fse_T = None, 0
     if nb.n_fse:
+        trace.count("fse_wide_lanes", nb.n_fse_wide, timings)
         with trace.stage("fse", timings, device):
             parts = []
             for i in range(0, nb.n_fse, df.LANES):

@@ -30,12 +30,17 @@ from .. import _build
 from ._launch import check_cuda, check_operand, launch
 
 # Copied from zstdsharp_tpu/ops/device_fse.py (importing it would import
-# JAX through zstdsharp_tpu/ops/__init__.py).
+# JAX through zstdsharp_tpu/ops/__init__.py), but for the word window: the
+# reference's ends at REF_MAX_W words (8 KiB), this one at MAX_W (32 KiB),
+# so a 128 KiB block's sequence bitstream fits and decodes on the card
+# (csrc/fse_decode.cu takes any width; at 8,192 words up to 5 lanes
+# share a block).  The buckets up to REF_MAX_W are the reference's.
 LANES = 1024
 NSTATES = 512          # LL/ML table size (tableLog 9)
 NSTATES_OF = 256       # OF table size (tableLog 8)
-MAX_W = 2048
-_W_BUCKETS = (64, 256, 512, 768, 1024, 1536, 2048)
+REF_MAX_W = 2048
+MAX_W = 8192
+_W_BUCKETS = (64, 256, 512, 768, 1024, 1536, 2048, 3072, 4096, 6144, 8192)
 _T_BUCKETS = (256, 1024, 4096, 16384, 32768)
 
 LL_BASE = np.array(
