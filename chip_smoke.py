@@ -42,23 +42,20 @@ Phases, each printed on its own line:
      through ``unwrap_many_device``: byte-exact, no frame host-routed, no
      sequences decoded on the host, one FSE launch;
  3b. lz_exec: the LZ executor kernel (``csrc/lz_exec.cu``) against its
-     plain versions, rows byte for byte and per-lane flags, on every call
-     the decode plane makes to its entry ``execseq.execute_lanes``
+     plain version, rows byte for byte and per-lane flags, on every call
+     the decode plane makes to its one entry ``execseq.execute_lanes``
      (captured through ``kernel_bench.capture_exec``): the decode cell's
      256 lanes [O 24576] in one launch, each round of the two 400 KB
      multi-block frames (one launch in place on the frame accumulator),
      set 1's 5,000 lanes in one launch, set 2's lanes (its 128 KB window
      row broadcast with stride 0) and rounds, none of which flags a lane,
-     and random corrupt meta; on each call also ``execseq.execute`` (the
-     same kernel body on the assembled operands) against its plain
-     version, and on two random corrupt operand sets; the launch counts
-     of each decode (the decode cell and set 1 once); then the A/B on the
-     decode cell's launch, in turns (plain, kernel, kernel, plain; the
-     plain version is ``lanes_plain`` on the same CUDA tensors: the torch
-     assembly, ``make_executor``'s run and ``lane_flags``), printed beside
-     ``execute``'s time on the assembled operands, the serial floor (the
-     cell's longest lane alone) and the bound
-     (``kernel_bench.lz_work``);
+     and random corrupt meta, one set with a window row broadcast to its
+     lanes; the launch counts of each decode (the decode cell and set 1
+     once); then the A/B on the decode cell's launch, in turns (plain,
+     kernel, kernel, plain; the plain version is ``lanes_plain`` on the
+     same CUDA tensors: the torch assembly, ``make_executor``'s run and
+     ``lane_flags``), printed beside the serial floor (the cell's longest
+     lane alone) and the bound (``kernel_bench.lz_work``);
  3c. corrupt frames: 8 records of 6,000 B at level 9 without a checksum,
      300 trials from random.Random(7) each flipping 1-4 bits of one frame:
      ``decode_batch_device(materialize=True)`` raises wherever the host
@@ -390,14 +387,12 @@ def _fse_wide_phase(dev, card):
 
 def _lz_equal(call, name):
     """The fused kernel against its plain version on one captured
-    ``execute_lanes`` call (an in-place output on copies), then
-    ``execute``'s kernel against its plain version on the same lanes'
-    assembled operands.  Returns (max_abs_err, the flags)."""
+    ``execute_lanes`` call (an in-place output on copies).  Returns
+    (max_abs_err, the flags)."""
     import torch
 
-    from zstdsharp_tpu_torch.kernel_bench import exec_args, run_lanes
-    from zstdsharp_tpu_torch.ops.execseq import (execute, execute_plain,
-                                                 lanes_plain)
+    from zstdsharp_tpu_torch.kernel_bench import run_lanes
+    from zstdsharp_tpu_torch.ops.execseq import lanes_plain
 
     got, bad = run_lanes(call)
     torch.cuda.synchronize()
@@ -407,13 +402,6 @@ def _lz_equal(call, name):
         else 0.0
     _check(torch.equal(bad, want_bad),
            f"{name}: the fused kernel's flags equal the plain version's")
-    args = exec_args(call)
-    got, ebad = execute(*args)
-    torch.cuda.synchronize()
-    want, want_bad = execute_plain(*args)
-    err = max(err, float((got.long() - want.long()).abs().max()))
-    _check(torch.equal(ebad, want_bad) and torch.equal(ebad, bad),
-           f"{name}: execute's flags equal the plain version's")
     return err, bad
 
 
@@ -445,11 +433,9 @@ def _lz_phase(frames, mb_frames, big, dev, card):
     from zstdsharp_tpu_torch.decode import device_pipeline as dp
     from zstdsharp_tpu_torch.dictionary import parse_dictionary
     from zstdsharp_tpu_torch.kernel_bench import (bound, capture_exec,
-                                                  exec_args, lz_corrupt,
                                                   lz_corrupt_lanes, lz_work,
                                                   run_lanes)
-    from zstdsharp_tpu_torch.ops.execseq import (execute, execute_lanes,
-                                                 execute_plain, lanes_plain)
+    from zstdsharp_tpu_torch.ops.execseq import execute_lanes, lanes_plain
 
     sets = _dict_sets()
     runs = {"decode cell": lambda: dp.decode_batch_device(frames, device=dev),
@@ -467,9 +453,12 @@ def _lz_phase(frames, mb_frames, big, dev, card):
         launched[name] = execute_lanes.launches
     rng = np.random.default_rng(10)
     groups["corrupt meta"] = [
-        lz_corrupt_lanes(rng, *shape, dev, srcs) for *shape, srcs in (
-            (64, 256, 4096, 8, "all"), (200, 1024, 24576, 1 << 15, "all"),
-            (5, 4096, 1 << 17, 1 << 17, "all"), (33, 100, 3000, 0, "raw"))]
+        lz_corrupt_lanes(rng, *shape, dev, srcs, bc) for *shape, srcs, bc in (
+            (64, 256, 4096, 8, "all", False),
+            (200, 1024, 24576, 1 << 15, "all", False),
+            (5, 4096, 1 << 17, 1 << 17, "all", False),
+            (33, 100, 3000, 0, "raw", False),
+            (16, 1024, 24576, 1 << 15, "all", True))]
     cell = groups["decode cell"]
     _check(launched["decode cell"] == 1 and len(cell) == 1
            and tuple(cell[0]["meta"].shape) == (N_RECORDS, 12)
@@ -499,28 +488,17 @@ def _lz_phase(frames, mb_frames, big, dev, card):
         shapes[name] = sorted({(c["meta"].shape[0], c["O"], c["S"],
                                 c["window"].shape[1], c["W"],
                                 c["out"] is not None) for c in calls})
-    rng = np.random.default_rng(11)
-    for *shape, bc in ((64, 4096, 24576, 8, False),
-                       (16, 1024, 24576, 1 << 15, True)):
-        args = lz_corrupt(rng, *shape, dev, bc)
-        got, bad = execute(*args)
-        want, want_bad = execute_plain(*args)
-        err = max(err, float((got.long() - want.long()).abs().max()))
-        _check(torch.equal(bad, want_bad), "execute's flags, corrupt operands")
     _check(err == 0.0, "lz_exec kernel equals its plain version")
     _check(flagged["corrupt meta"] > 0, "corrupt meta flags lanes")
 
     # the decode cell's one launch against its plain version on the card,
-    # in turns: plain, kernel, kernel, plain; execute on the assembled
-    # operands (the same kernel body) beside it
+    # in turns: plain, kernel, kernel, plain
     call = cell[0]
     a = _gpu_ms(lambda: run_lanes(call, lanes_plain), 3)
     k1 = _gpu_ms(lambda: run_lanes(call), 20)
     k2 = _gpu_ms(lambda: run_lanes(call), 20)
     b = _gpu_ms(lambda: run_lanes(call, lanes_plain), 3)
     ms, plain_ms = (k1 + k2) / 2, (a + b) / 2
-    args = exec_args(call)
-    exec_ms = _gpu_ms(lambda: execute(*args), 20)
     bound_ms, bound_by = bound(*lz_work(call))
     longest = int(torch.argmax(call["meta"][:, 8]))
     lane = dict(call, meta=call["meta"][longest:longest + 1],
@@ -532,23 +510,21 @@ def _lz_phase(frames, mb_frames, big, dev, card):
     n_max = int(lane["meta"][0, 8])
     print(f"phase lz_exec: fused kernel == plain on "
           f"{sum(map(len, groups.values()))} calls (max_abs_err {err}; "
-          f"flags equal, flagged lanes {flagged}; execute == plain on the "
-          f"same lanes' assembled operands and 2 corrupt operand sets): "
+          f"flags equal, flagged lanes {flagged}): "
           f"{ {k: len(v) for k, v in groups.items()} } calls of (lanes, O, "
           f"S, window row, W, in place) {shapes}; launches a decode "
           f"{launched} (the chunked executor: decode cell 4, set 1 79, "
           f"PERF.md); decode cell, one launch of 256 lanes "
           f"({int(call['meta'][:, 8].clamp(min=0).sum())} sequences): "
           f"kernel {k1:.4f} / {k2:.4f} ms, plain {a:.3f} / {b:.3f} ms "
-          f"(turns plain, kernel, kernel, plain; CUDA events), execute on "
-          f"the assembled operands {exec_ms:.4f} ms, bound {bound_ms:.5f} "
-          f"ms ({bound_by}); serial floor: the longest lane alone ({n_max} "
-          f"sequences) {floor_ms:.4f} ms, "
+          f"(turns plain, kernel, kernel, plain; CUDA events), bound "
+          f"{bound_ms:.5f} ms ({bound_by}); serial floor: the longest lane "
+          f"alone ({n_max} sequences) {floor_ms:.4f} ms, "
           f"{floor_ms * 1e6 / max(n_max, 1):.1f} ns a sequence; no single "
           f"PyTorch call computes it, on {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "serial_floor_ms": floor_ms, "execute_ms": exec_ms}
+            "serial_floor_ms": floor_ms}
 
 
 def _decode_profile_phase(frames, dev, card):

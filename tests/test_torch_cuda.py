@@ -29,10 +29,9 @@ from zstdsharp_tpu_torch.graft_entry import entry
 from zstdsharp_tpu_torch.kernel_bench import (ASSEMBLE_ARGS, ASSEMBLE_PASSES,
                                              assemble_lane, assemble_passes,
                                              capture_assemble, capture_exec,
-                                             capture_parse, exec_args,
-                                             lz_corrupt, lz_corrupt_lanes,
-                                             parse_rows, run_assemble,
-                                             run_lanes, run_parse)
+                                             capture_parse, lz_corrupt_lanes,
+                                             run_assemble, run_lanes,
+                                             run_parse)
 from zstdsharp_tpu_torch.ops import assemble as asm
 from zstdsharp_tpu_torch.ops import device_fse as df
 from zstdsharp_tpu_torch.ops import device_huf as dh
@@ -46,7 +45,7 @@ from zstdsharp_tpu_torch.parallel.pipeline import (compress_data_parallel,
                                                    decompress_data_parallel,
                                                    make_mesh)
 
-from torch_parse_cases import DIAGONAL_CASES, diagonal_rows
+from torch_parse_cases import DIAGONAL_CASES, diagonal_rows, parse_rows
 from torch_assemble_cases import (CHAIN_NSEQ, assemble_call,
                                   assemble_records, chain_case_call,
                                   pad_records, roll_back)
@@ -516,26 +515,11 @@ def test_dictionary_kernels_equal_plain(cuda):
             _fse_equal_plain(ops)
 
 
-def _lz_equal_plain(args):
-    """Launch the LZ executor kernel once on `args`, synchronise (a fault
-    raises here), hold its rows byte for byte and its flags against the
-    plain versions.  Returns the flags."""
-    before = ex.execute.launches
-    got, bad = ex.execute(*args)
-    torch.cuda.synchronize()
-    assert ex.execute.launches == before + 1
-    want, want_bad = ex.execute_plain(*args)
-    assert got.shape == want.shape and torch.equal(got, want)
-    assert bad.dtype == torch.int32 and torch.equal(bad, want_bad)
-    return bad
-
-
 def _lanes_equal_plain(call):
     """Launch the fused lane decode once on a ``capture_exec`` record
-    (an in-place output on a copy), synchronise, hold its rows (or the
-    whole updated output) byte for byte and its flags against
-    ``lanes_plain`` on the card, and ``execute`` on the assembled operands
-    against its plain version.  Returns the flags."""
+    (an in-place output on a copy), synchronise (a fault raises here),
+    hold its rows (or the whole updated output) byte for byte and its
+    flags against ``lanes_plain`` on the card.  Returns the flags."""
     before = ex.execute_lanes.launches
     got, bad = run_lanes(call)
     torch.cuda.synchronize()
@@ -543,7 +527,6 @@ def _lanes_equal_plain(call):
     want, want_bad = run_lanes(call, ex.lanes_plain)
     assert got.shape == want.shape and torch.equal(got, want)
     assert bad.dtype == torch.int32 and torch.equal(bad, want_bad)
-    assert torch.equal(_lz_equal_plain(exec_args(call)), bad)
     return bad
 
 
@@ -606,18 +589,27 @@ def test_lz_exec_dictionary_set_one_launch(cuda):
     assert not _lanes_equal_plain(calls[0]).any()
 
 
-@pytest.mark.parametrize("N,S,O,W,sources,seed", [
-    (64, 256, 4096, 8, "all", 11),
-    (200, 1024, 24576, 1 << 15, "all", 12),
-    (5, 4096, 1 << 17, 1 << 17, "all", 13),
-    (33, 100, 3000, 0, "raw", 14),
-    (130, 4096, 24576, 8, "all", 15)])
-def test_lz_decode_random_corrupt_meta(cuda, N, S, O, W, sources, seed):
+@pytest.mark.parametrize("N,S,O,W,sources,broadcast,seed", [
+    (64, 256, 4096, 8, "all", False, 11),
+    (200, 1024, 24576, 1 << 15, "all", False, 12),
+    (5, 4096, 1 << 17, 1 << 17, "all", False, 13),
+    (33, 100, 3000, 0, "raw", False, 14),
+    (130, 4096, 24576, 8, "all", False, 15),
+    (64, 256, 4096, 8, "all", False, 1),
+    (16, 1024, 24576, 1 << 15, "all", True, 2),
+    (4, 4096, 1 << 17, 1 << 17, "all", False, 3),
+    (33, 100, 3000, 0, "all", False, 4),
+    (64, 4096, 24576, 8, "all", False, 5)])
+def test_lz_decode_random_corrupt_meta(cuda, N, S, O, W, sources, broadcast,
+                                       seed):
     """Meta rows that index past every source, seg 0 and below, n_seq past
-    S, negative sequence values: the plain version's bytes and flags, and
-    no illegal address."""
+    S, negative sequence values, windows a lane or one row broadcast to
+    every lane (stride 0): the plain version's bytes (chains, pool
+    references below index 0, positions past O, cycles) and flags, and no
+    illegal address."""
     call = lz_corrupt_lanes(np.random.default_rng(seed), N, S, O, W, cuda,
-                            sources)
+                            sources, broadcast)
+    assert not broadcast or call["window"].stride(0) == 0
     assert _lanes_equal_plain(call).any()
 
 
@@ -670,30 +662,17 @@ def test_lz_decode_in_place_round_equals_gather_scatter(cuda):
             assert torch.equal(got, acc) and torch.equal(bad, want_bad)
 
 
-@pytest.mark.parametrize("B,S,O,W,broadcast,seed", [
-    (64, 256, 4096, 8, False, 1),
-    (16, 1024, 24576, 1 << 15, True, 2),
-    (4, 4096, 1 << 17, 1 << 17, False, 3),
-    (33, 100, 3000, 0, False, 4),
-    (64, 4096, 24576, 8, False, 5)])
-def test_lz_exec_random_corrupt_operands(cuda, B, S, O, W, broadcast, seed):
-    """Corrupt operands give the plain version's bytes (chains, pool
-    references below index 0, positions past O, cycles) and flags, and no
-    illegal address."""
-    rng = np.random.default_rng(seed)
-    assert _lz_equal_plain(lz_corrupt(rng, B, S, O, W, cuda, broadcast)).any()
-
-
 def test_lz_exec_largest_shapes(cuda):
     """O = 128 KB (the top output bucket) with the largest window, 4 MB a
-    lane, and valid sequences: overlapping matches, matches back into the
-    output and deep into the window."""
+    lane, raw pool literals and host sequence rows (seq_kind 2) of valid
+    sequences: overlapping matches, matches back into the output and deep
+    into the window.  No lane is flagged."""
     B, S, O, W = 4, 8192, 1 << 17, 1 << 22
     rng = np.random.default_rng(6)
     ll = np.zeros((B, S), np.int32)
     ml = np.zeros((B, S), np.int32)
     off = np.ones((B, S), np.int32)
-    n_seq = np.zeros(B, np.int64)
+    meta = np.zeros((B, 12), np.int64)
     for b in range(B):
         pos, k = 0, 0
         while k < S:
@@ -706,14 +685,20 @@ def test_lz_exec_largest_shapes(cuda):
                   else int(rng.integers(pos + lk + 1, pos + lk + W + 1)))
             ll[b, k], ml[b, k], off[b, k] = lk, mk, ok
             pos, k = pos + lk + mk, k + 1
-        n_seq[b] = k
-    args = [torch.from_numpy(a).to(cuda) for a in (
-        rng.integers(0, 256, (B, O), dtype=np.uint8),
-        rng.integers(0, 256, (B, W), dtype=np.uint8), ll, ml, off, n_seq,
-        np.full(B, 40, np.int64), np.full(B, O, np.int64),
-        np.zeros(B, np.int64))]
-    assert int(args[5].min()) > 1000
-    _lz_equal_plain(args)
+        regen = int(ll[b].sum()) + 40
+        # raw literals at b * O, host row b, out_len the lane's total, the
+        # whole window real bytes before it
+        meta[b] = (0, b * O, regen, 0, 0, 2, -1, b, k, regen, pos + 40, W)
+    t = torch.from_numpy
+    src = ex.LaneSources(
+        t(rng.integers(0, 256, B * O + 1, dtype=np.uint8)).to(cuda),
+        host=tuple(t(a).to(cuda) for a in (ll, ml, off)))
+    call = {"meta": t(meta).to(cuda), "src": src, "S": S, "O": O,
+            "window": t(rng.integers(0, 256, (B, W), dtype=np.uint8)).to(
+                cuda),
+            "win_start": None, "W": None, "out": None, "out_start": None}
+    assert int(meta[:, 8].min()) > 1000
+    assert not _lanes_equal_plain(call).any()
 
 
 def test_lz_exec_flags_on_mutated_batch(cuda):

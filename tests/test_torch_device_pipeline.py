@@ -719,21 +719,21 @@ def test_decompress_data_parallel_raises_as_decompress(mutation_case):
 def _flags_of(run):
     """Every lane flag the decode plane computes in run(), from the
     executor's operands (``lane_flags``; the rows are not executed)."""
-    from zstdsharp_tpu_torch.ops.execseq import lane_flags
+    from zstdsharp_tpu_torch.ops import execseq as ex
 
     seen = []
 
     def spy(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len):
-        seen.append(lane_flags(ll, ml, off, n_seq, last_lit, out_len,
-                               win_len))
+        seen.append(ex.lane_flags(ll, ml, off, n_seq, last_lit, out_len,
+                                  win_len))
         return torch.zeros_like(lit), seen[-1]
 
-    real = dp.execute
-    dp.execute = spy
+    real = ex.execute_plain
+    ex.execute_plain = spy
     try:
         run()
     finally:
-        dp.execute = real
+        ex.execute_plain = real
     assert seen
     return torch.cat(seen)
 

@@ -3,16 +3,16 @@
 window references, offsets past the window, offsets that reinterpret as
 negative int32, and out_len zeroing.  Outputs are bytes and must be equal.
 
-``execute`` (the kernel's entry on assembled operands; the decode plane's
-entry, ``execute_lanes``, is tested in tests/test_torch_lz_decode.py) is
-held on its plain path against
-the reference and against ``walk``, a numpy walker written here that
-follows csrc/lz_exec.cu's algorithm, so the kernel's algorithm is checked
-on the CPU although the CUDA cannot run here.  Its per-lane flags
-(``lane_flags``: libzstd's literal-overrun, content-size and offset
-checks) are held against ``flags``, a numpy loop over each lane's
-sequences written here, on hand-made operands for each bit and on every
-case above:
+``execute_plain`` (the plain executor on assembled operands, which
+``lanes_plain``, the CPU path of the decode plane's entry
+``execute_lanes``, runs on each chunk; that entry is tested in
+tests/test_torch_lz_decode.py) is held against the reference and against
+``walk``, a numpy walker written here that follows csrc/lz_exec.cu's
+algorithm, so the kernel's algorithm is checked on the CPU although the
+CUDA cannot run here.  Its per-lane flags (``lane_flags``: libzstd's
+literal-overrun, content-size and offset checks) are held against
+``flags``, a numpy loop over each lane's sequences written here, on
+hand-made operands for each bit and on every case above:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_execseq.py -q
 """
@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from zstdsharp_tpu.ops.execseq import get_executor
-from zstdsharp_tpu_torch.ops.execseq import (execute, lane_flags,
+from zstdsharp_tpu_torch.ops.execseq import (execute_plain, lane_flags,
                                              make_executor)
 
 B, S, L, W, O = 6, 48, 1024, 64, 2048
@@ -122,7 +122,7 @@ def test_shape_mismatch_raises():
 
 
 # ---------------------------------------------------------------------------
-# execute: its plain path against the reference and the kernel's algorithm
+# execute_plain against the reference and the kernel's algorithm
 
 TILE = 8  # the kernel's tile is 128 sequences; 8 makes small cases span tiles
 
@@ -303,7 +303,8 @@ EXEC_CASES = ([f"seed{i}" for i in range(1, 8)]
 
 
 def _torch_args(args, broadcast, win_len=None):
-    """`args` as execute's operands, win_len (default 0 a lane) last."""
+    """`args` as execute_plain's operands, win_len (default 0 a lane)
+    last."""
     if win_len is None:
         win_len = np.zeros(args[0].shape[0], np.int64)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (*args, win_len)]
@@ -346,7 +347,7 @@ def test_execute_equals_reference_and_walker(name):
         window = np.broadcast_to(window, (lit.shape[0], window.shape[1]))
     dense = (lit, window, *args[2:])
     win_len = np.arange(B, dtype=np.int64) * 40
-    got, bad = execute(*_torch_args(args, broadcast, win_len))
+    got, bad = execute_plain(*_torch_args(args, broadcast, win_len))
     assert got.dtype == torch.uint8 and tuple(got.shape) == (B, O)
     assert bad.dtype == torch.int32 and tuple(bad.shape) == (B,)
     assert np.array_equal(bad.numpy(), flags(*args[2:], win_len))
@@ -398,43 +399,9 @@ def test_walker_equals_plain_on_corrupt_operands(seed, regular):
     so on these operands the plain version is the definition."""
     args, o = _corrupt(seed, regular)
     win_len = np.random.default_rng(seed).integers(-5, 300, 4)
-    got, bad = execute(*_torch_args(args, False, win_len))
+    got, bad = execute_plain(*_torch_args(args, False, win_len))
     assert np.array_equal(walk(*args, o), got.numpy())
     assert np.array_equal(bad.numpy(), flags(*args[2:], win_len))
-
-
-@pytest.mark.parametrize("case", ["lit_rank", "ll_rows", "out_len_shape",
-                                  "ll_dtype", "n_seq_dtype", "lit_dtype",
-                                  "window_stride", "window_rows",
-                                  "mixed_device", "meta_device",
-                                  "win_len_dtype"])
-def test_execute_raises(case):
-    t = _torch_args(_exec_case("seed4")[0], False)
-    err = ValueError
-    if case == "lit_rank":
-        t[0] = t[0][0]
-    elif case == "ll_rows":
-        t[2] = t[2][:-1]
-    elif case == "out_len_shape":
-        t[7] = t[7][:, None]
-    elif case == "ll_dtype":
-        t[2], err = t[2].long(), TypeError
-    elif case == "n_seq_dtype":
-        t[5], err = t[5].int(), TypeError
-    elif case == "lit_dtype":
-        t[0], err = t[0].int(), TypeError
-    elif case == "window_stride":
-        t[1] = torch.cat([t[1], t[1]], 1)[:, ::2]
-    elif case == "window_rows":
-        t[1] = t[1][:-1]
-    elif case == "mixed_device":
-        t[3] = t[3].to("meta")
-    elif case == "win_len_dtype":
-        t[8], err = t[8].int(), TypeError
-    else:
-        t = [x.to("meta") for x in t]
-    with pytest.raises(err):
-        execute(*t)
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +472,7 @@ def test_flags_on_hand_made_operands(case, bits):
     want[b] = bits
     assert np.array_equal(flags(*args[2:], win_len), want)
     t = _torch_args(args, False, win_len)
-    got, bad = execute(*t)
+    got, bad = execute_plain(*t)
     assert np.array_equal(bad.numpy(), want)
     assert torch.equal(lane_flags(*t[2:]), bad)
     ref = (args[0], args[1], *(a.view(np.uint32) for a in args[2:5]),

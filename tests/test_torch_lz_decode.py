@@ -310,7 +310,7 @@ def test_model_equals_assembly_on_random_meta(seed):
     """The numpy model of the kernel's lane setup equals the torch
     assembly on random meta that indexes past every source (the meta the
     card tests give the kernel), and the plain execute_lanes equals
-    execute on the assembled operands."""
+    execute_plain on the assembled operands."""
     rng = np.random.default_rng(seed)
     call = lz_corrupt_lanes(rng, 12, 40, 300, 16, CPU,
                             "raw" if seed == 5 else "all")
@@ -343,7 +343,13 @@ def test_padding_lanes_give_zero_rows_and_flags():
 @pytest.mark.parametrize("case", ["meta_dtype", "meta_cols", "raw_dtype",
                                   "huf_T", "fse_rows", "window_rows",
                                   "W_past_row", "out_narrow",
-                                  "out_start_alone", "start_dtype"])
+                                  "out_start_alone", "start_dtype",
+                                  "meta_rank", "meta_strided",
+                                  "window_dtype", "window_row_stride",
+                                  "window_cols_strided", "window_device",
+                                  "raw_device", "host_rows", "fse_dtype",
+                                  "W_negative", "win_start_shape",
+                                  "out_dtype", "out_device", "meta_device"])
 def test_execute_lanes_raises(case):
     rng = np.random.default_rng(5)
     raw, huf, fse, host = _sources(rng, 8)
@@ -370,8 +376,41 @@ def test_execute_lanes_raises(case):
         kw = {"out": torch.zeros(4, O - 1, dtype=torch.uint8)}
     elif case == "out_start_alone":
         kw = {"out_start": torch.zeros(4, dtype=torch.int64)}
-    else:
+    elif case == "start_dtype":
         kw, err = {"win_start": torch.zeros(4, dtype=torch.int32)}, TypeError
+    elif case == "meta_rank":
+        meta = meta.reshape(-1)
+    elif case == "meta_strided":
+        meta = torch.cat([meta, meta], 1)[:, ::2]
+    elif case == "window_dtype":
+        win, err = win.int(), TypeError
+    elif case == "window_row_stride":    # neither 0 nor A = 8 bytes apart
+        win = torch.zeros(4, 16, dtype=torch.uint8)[:, :8]
+    elif case == "window_cols_strided":
+        win = torch.zeros(4, 16, dtype=torch.uint8)[:, ::2]
+    elif case == "window_device":
+        win = win.to("meta")
+    elif case == "raw_device":
+        src = src._replace(raw=src.raw.to("meta"))
+    elif case == "host_rows":            # two channels, not (ll, ml, off)
+        src = src._replace(host=src.host[:2])
+    elif case == "fse_dtype":
+        src, err = src._replace(fse=tuple(r.long() for r in src.fse)), \
+            TypeError
+    elif case == "W_negative":
+        kw = {"W": -1}
+    elif case == "win_start_shape":
+        kw = {"win_start": torch.zeros(4, 1, dtype=torch.int64)}
+    elif case == "out_dtype":
+        kw, err = {"out": torch.zeros(4, O, dtype=torch.int32)}, TypeError
+    elif case == "out_device":
+        kw = {"out": torch.zeros(4, O, dtype=torch.uint8, device="meta")}
+    else:                                # a device with no kernel and no
+        meta, win = meta.to("meta"), win.to("meta")  # plain version
+        src = LaneSources(*(
+            t.to("meta") if isinstance(t, torch.Tensor) else
+            tuple(r.to("meta") for r in t) if isinstance(t, tuple) else t
+            for t in src))
     with pytest.raises(err):
         execute_lanes(meta, src, S, O, win, **kw)
 

@@ -26,11 +26,10 @@ import torch
 
 from zstdsharp_tpu.ops import device_encode as ref_de
 from zstdsharp_tpu.ops import matcher as ref_m
-from zstdsharp_tpu_torch.kernel_bench import parse_rows
 from zstdsharp_tpu_torch.ops import device_encode as de
 from zstdsharp_tpu_torch.ops import lz_parse as lp
 from zstdsharp_tpu_torch.ops import matcher as tm
-from torch_parse_cases import DIAGONAL_CASES, diagonal_rows
+from torch_parse_cases import DIAGONAL_CASES, diagonal_rows, parse_rows
 
 PRIME = 2654435761
 FULL = 0xFFFFFFFF

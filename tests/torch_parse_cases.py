@@ -1,11 +1,58 @@
-"""Rows where the parse kernel's diagonal lengths and doubling selection
-have their edges, shared by ``test_torch_lz_parse.py`` (against the JAX
-package) and ``test_torch_cuda.py`` (the kernel against its plain
-version).  Imports neither JAX nor torch."""
+"""Rows for the parse: ``parse_rows``' seeded edge rows and the rows where
+the parse kernel's diagonal lengths and doubling selection have their
+edges, shared by ``test_torch_lz_parse.py`` (against the JAX package) and
+``test_torch_cuda.py`` (the kernel against its plain version).  Imports
+neither JAX nor torch."""
 
 import numpy as np
 
 DIAGONAL_CASES = ("one_byte", "periods", "n_valid_cut", "restart")
+
+
+def parse_rows(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded rows of width n for the parse and their n_valid: text,
+    noise, a byte run and ``b"ab"`` runs, the n_valid edges 0, 3, n - 1
+    and n, repeats of 639, 640, 641 and 700 bytes (the (8, 8) rounds
+    extend at most 640), a match that runs into n, one clipped by n_valid
+    with the match going on past it, and one offset repeated with and
+    without literals between (rep0)."""
+    rng = np.random.default_rng(seed)
+    words = [b"alpha ", b"bravo ", b"charlie ", b"delta ", b"echo ",
+             b"foxtrot ", b"golf ", b"hotel "]
+    rows, nvs = [], []
+
+    def text(k):
+        return b"".join(words[i] for i in rng.integers(0, 8, k // 5 + 2))[:k]
+
+    def noise(k):
+        return bytes(rng.integers(0, 256, k, dtype=np.uint8))
+
+    def add(data, nv=None, fill=b""):
+        r = np.zeros(n, np.uint8)
+        body = (data + fill)[:n]
+        r[:len(body)] = np.frombuffer(body, np.uint8)
+        rows.append(r)
+        nvs.append(min(len(data), n) if nv is None else nv)
+
+    add(text(n))
+    add(noise(n))
+    add(b"Q" * (n // 2) + text(n // 2))
+    add(b"ab" * n)
+    for nv in (0, 3, n - 1, n):
+        add(text(n), nv)
+    for run in (639, 640, 641, 700):
+        x = noise(run)
+        add(noise(17) + x + x + text(n))
+    x = noise(n // 2 - 5)
+    add(noise(10) + x + x)                         # the match reaches n
+    x = noise(300)
+    add(noise(20) + x + x[:150], None, x[150:] + noise(n))  # clipped by nv
+    x = bytearray(noise(900))
+    y = bytearray(x)
+    for k in range(40, 900, 60):
+        y[k] ^= 0x5A                               # one literal, same offset
+    add(noise(5) + bytes(x) + bytes(y) + bytes(x) * 3)
+    return np.stack(rows), np.array(nvs, np.int32)
 
 
 def diagonal_rows(case: str, n: int, seed: int = 0):

@@ -127,9 +127,6 @@ def load() -> ctypes.CDLL:
         lib.zt_histogram_floor.restype = i
         lib.zt_histogram_floor.argtypes = [i, i, i, p]
         q = ctypes.c_longlong
-        lib.zt_lz_exec.restype = i
-        lib.zt_lz_exec.argtypes = [p, q, p, q, q, p, p, p, q, p, p, p, p, p,
-                                   q, p, p, p, i, i, i, p]
         lib.zt_lz_decode.restype = i
         lib.zt_lz_decode.argtypes = [p, q, p, q, p, q, q, p, p, p, q, q, p, p,
                                      p, q, q, p, q, q, q, p, p, q, q, q, p, q,

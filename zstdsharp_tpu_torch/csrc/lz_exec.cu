@@ -6,27 +6,24 @@
 // Replaces the TPU design of zstdsharp_tpu/decode/device_pipeline.py
 // _fused_decode (:1203, one jitted XLA program a chunk: the literal
 // assembly, then ops/execseq.py:make_executor (:41; XLA, no pallas_call),
-// reached from :1217).  Two entries share one kernel body:
-//
-// * zt_lz_decode reads each lane straight from the decode plane's sources
-//   through its int64 meta row (lit_kind, pool_base, pool_len, huf_lane0,
-//   huf_seg, seq_kind, fse_lane, host_row, n_seq, lit_regen, out_len,
-//   win_len).  Literal byte i of a lane (i < L = O) is the function the
-//   plain version (ops/execseq.py assemble) evaluates, with its clamps:
-//     - Huffman (lit_kind 1, with Huffman rows): s = min(i // seg, 3),
-//       seg >= 1, qi = clamp(s T + i - s seg, 0, 4T - 1), the low byte of
-//       the int32 symbol at st + qi of the flat rows, st = max(lane0, 0) T
-//       clamped to [0, n_huf + 8] and 0 past the rows (the padded
-//       dynamic slice);
-//     - RLE (pool_len 1): the pool byte at st = clamp(pool_base, 0,
-//       n_raw + 8), 0 past the pool;
-//     - raw: the pool byte at st + i, 0 past the pool.
-//   ll/ml/off[k] are row min(max(fse_lane, 0), n_fse - 1) of the FSE rows
-//   (seq_kind 1; 0 for k >= their width T, off included), row
-//   min(max(host_row, 0), n_host - 1) of the host rows (seq_kind 2), else
-//   (0, 0, 1); last_lit = lit_regen - the int64 sum of the live ll.
-// * zt_lz_exec reads assembled operands (literal rows, ll/ml/off rows,
-//   n_seq/last_lit/out_len/win_len), ops/execseq.py execute's contract.
+// reached from :1217).  Its one entry, zt_lz_decode, reads each lane
+// straight from the decode plane's sources through its int64 meta row
+// (lit_kind, pool_base, pool_len, huf_lane0, huf_seg, seq_kind, fse_lane,
+// host_row, n_seq, lit_regen, out_len, win_len).  Literal byte i of a lane
+// (i < L = O) is the function the plain version (ops/execseq.py assemble)
+// evaluates, with its clamps:
+//   - Huffman (lit_kind 1, with Huffman rows): s = min(i // seg, 3),
+//     seg >= 1, qi = clamp(s T + i - s seg, 0, 4T - 1), the low byte of the
+//     int32 symbol at st + qi of the flat rows, st = max(lane0, 0) T
+//     clamped to [0, n_huf + 8] and 0 past the rows (the padded dynamic
+//     slice);
+//   - RLE (pool_len 1): the pool byte at st = clamp(pool_base, 0,
+//     n_raw + 8), 0 past the pool;
+//   - raw: the pool byte at st + i, 0 past the pool.
+// ll/ml/off[k] are row min(max(fse_lane, 0), n_fse - 1) of the FSE rows
+// (seq_kind 1; 0 for k >= their width T, off included), row
+// min(max(host_row, 0), n_host - 1) of the host rows (seq_kind 2), else
+// (0, 0, 1); last_lit = lit_regen - the int64 sum of the live ll.
 //
 // A lane's window is W bytes at a start clamped to [0, row - W] of its
 // row of the window tensor (row stride 0: one row for every lane), and
@@ -166,19 +163,10 @@ static_assert(kStatic <= kStaticAllowance,
 using i64 = long long;
 using u64 = unsigned long long;
 
-// What a launch reads, for either entry.
+// What a launch reads.
 struct Params {
-  const i64* meta;  // [N, kMeta]; null: the assembled operands below
-  // assembled operands (zt_lz_exec)
-  const uint8_t* lit;  // [N, L]
-  const int32_t* ll;   // [N, S]
-  const int32_t* ml;
-  const int32_t* off;
-  const i64* n_seq;  // [N]
-  const i64* last_lit;
-  const i64* out_len;
-  const i64* win_len;
-  // the decode plane's sources (zt_lz_decode)
+  const i64* meta;  // [N, kMeta]
+  // the decode plane's sources
   const uint8_t* raw;  // [n_raw], the literal pool
   const int32_t* huf;  // [n_huf], the Huffman rows, T a row; may be null
   const int32_t* fse[3];  // [n_fse, fse_T] ll, ml, off; may be null
@@ -192,7 +180,7 @@ struct Params {
   uint8_t* out;
   i64 O, O16, out_stride, out_row;
   const i64* out_start;
-  i64 L, S;
+  i64 S;
   i64 stage;  // shared-memory bytes past the row for the staged sources
   int32_t* bad;  // [N] the flags
   i64* seg_scratch;  // [N, 2, S + 1]
@@ -564,13 +552,13 @@ __device__ void exact(const Lane& z, i64 oe, uint8_t* row, i64* seg,
   }
 }
 
-// Lane b's sources, its window and its meta scalars; last and last_lit are
-// set by the caller.  lit_regen is the meta's (0 for assembled operands).
+// Lane b's sources, its window and its meta scalars; the caller sets
+// z.last from lit_regen.
 __device__ void setup(const Params& p, i64 b, Lane& z, i64& lit_regen) {
-  z.L = p.L;
+  z.L = p.O;
   z.S = p.S;
   z.O = p.O;
-  z.P = p.L + p.W;
+  z.P = p.O + p.W;
   z.win = p.win + b * p.win_stride +
           (p.win_start ? clampi(p.win_start[b], 0, p.win_row - p.W) : 0);
   z.huf = nullptr;
@@ -580,21 +568,6 @@ __device__ void setup(const Params& p, i64 b, Lane& z, i64& lit_regen) {
   z.s_lit = nullptr;
   z.n_lit_st = 0;
   z.s_ll = z.s_ml = z.s_off = nullptr;
-  if (!p.meta) {  // assembled operands: the literal row as a raw span
-    z.mode = kRaw;
-    z.raw = p.lit + b * p.L;
-    z.lst = 0;
-    z.n_src = p.L;
-    z.ll = p.ll + b * p.S;
-    z.ml = p.ml + b * p.S;
-    z.off = p.off + b * p.S;
-    z.T_seq = p.S;
-    z.n_seq = p.n_seq[b];
-    z.out_len = p.out_len[b];
-    z.wlen = p.win_len[b];
-    lit_regen = 0;
-    return;
-  }
   const i64* m = p.meta + b * kMeta;
   const i64 lit_kind = m[0], pool_base = m[1], pool_len = m[2];
   const i64 lane0 = m[3], seq_kind = m[5];
@@ -686,9 +659,8 @@ __global__ void __launch_bounds__(kThreads) lz_kernel(const Params p) {
   }
   i64 e1, e2, t_ll_sum, t_neg;
   scan2(sum_ll, neg ? 1 : 0, e1, e2, t_ll_sum, t_neg, sh);
-  const i64 last = p.meta ? static_cast<i64>(static_cast<u64>(lit_regen) -
-                                             static_cast<u64>(t_ll_sum))
-                          : p.last_lit[b];
+  const i64 last = static_cast<i64>(static_cast<u64>(lit_regen) -
+                                    static_cast<u64>(t_ll_sum));
   z.last = static_cast<int32_t>(last);
 
   // the literals the walk copies, [0, min(sum of ll + last_lit, L)), staged
@@ -763,71 +735,7 @@ __global__ void __launch_bounds__(kThreads) lz_kernel(const Params p) {
   }
 }
 
-// Checks the shapes both entries share, opts into the row's shared memory
-// and launches n blocks.  Returns a cudaError_t.
-int launch(Params& p, long long n, void* stream) {
-  if (n <= 0 || p.O <= 0) return 0;
-  if (p.L < 0 || p.W < 0 || p.L + p.W <= 0 || p.S < 0 ||
-      p.O > (1ll << 30) || p.L + p.W > (1ll << 31) - 1 || n > 0x7fffffff ||
-      p.win_row < p.W || p.out_row < p.O)
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.O16 = (p.O + 15) & ~15ll;
-  if (p.stage < 0 || (p.stage & 15) || p.O16 + p.stage > kSmemMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long dyn = p.O16 + p.stage;
-  // the default 48 KB limit counts the static shared memory too, so opt in
-  // on every launch rather than from a threshold on the dynamic size alone
-  cudaError_t err = cudaFuncSetAttribute(
-      lz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dyn));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lz_kernel<<<static_cast<unsigned>(n), kThreads, static_cast<size_t>(dyn),
-              static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-// lit [b, L] u8, window rows of W bytes `ws` apart (0: one shared row),
-// ll/ml/off [b, S] int32, n_seq/last_lit/out_len/win_len [b] int64, out
-// [b, O] u8, bad [b] int32 (the lanes' flags);
-// seg_scratch int64 [b, 2, S+1] and code_scratch int32 [b, O], written only
-// by lanes that take the exact path.  Returns a cudaError_t.
-extern "C" int zt_lz_exec(const void* lit, long long L, const void* window,
-                          long long W, long long ws, const void* ll,
-                          const void* ml, const void* off, long long S,
-                          const void* n_seq, const void* last_lit,
-                          const void* out_len, const void* win_len, void* out,
-                          long long O, void* bad, void* seg_scratch,
-                          void* code_scratch, int search_rounds,
-                          int jump_rounds, int b,
-                          void* stream) {
-  Params p = {};
-  p.lit = static_cast<const uint8_t*>(lit);
-  p.ll = static_cast<const int32_t*>(ll);
-  p.ml = static_cast<const int32_t*>(ml);
-  p.off = static_cast<const int32_t*>(off);
-  p.n_seq = static_cast<const i64*>(n_seq);
-  p.last_lit = static_cast<const i64*>(last_lit);
-  p.out_len = static_cast<const i64*>(out_len);
-  p.win_len = static_cast<const i64*>(win_len);
-  p.win = static_cast<const uint8_t*>(window);
-  p.W = W;
-  p.win_stride = ws;
-  p.win_row = W;
-  p.out = static_cast<uint8_t*>(out);
-  p.O = O;
-  p.out_stride = O;
-  p.out_row = O;
-  p.L = L;
-  p.S = S;
-  p.bad = static_cast<int32_t*>(bad);
-  p.seg_scratch = static_cast<i64*>(seg_scratch);
-  p.code_scratch = static_cast<int32_t*>(code_scratch);
-  p.search_rounds = search_rounds;
-  p.jump_rounds = jump_rounds;
-  return launch(p, b, stream);
-}
 
 // Every lane of a batch from its meta row (meta int64 [n, 12]) and the
 // decode plane's sources: raw u8 [n_raw]; huf int32 [n_huf] (T = huf_T a
@@ -837,8 +745,11 @@ extern "C" int zt_lz_exec(const void* lit, long long L, const void* window,
 // clamp(win_start[b], 0, win_row - W) of window + b * win_stride (a null
 // win_start: 0), its output the O bytes at clamp(out_start[b], 0,
 // out_row - O) of out + b * out_stride.  bad [n] int32, the flags;
-// seg_scratch int64 [n, 2, S+1] and code_scratch int32 [n, O] as above.
-// Returns a cudaError_t.
+// seg_scratch int64 [n, 2, S+1] and code_scratch int32 [n, O], written
+// only by lanes that take the exact path.  stage: the shared-memory bytes
+// a block gets past its row for the staged sources.  Opts into the row's
+// shared memory on every launch and launches n blocks.  Returns a
+// cudaError_t.
 extern "C" int zt_lz_decode(
     const void* meta, long long n, const void* raw, long long n_raw,
     const void* huf, long long n_huf, long long huf_T, const void* fse_ll,
@@ -850,9 +761,14 @@ extern "C" int zt_lz_decode(
     long long out_stride, long long out_row, const void* out_start,
     long long S, long long stage, void* bad, void* seg_scratch,
     void* code_scratch, int search_rounds, int jump_rounds, void* stream) {
+  if (n <= 0 || O <= 0) return 0;
+  const long long o16 = (O + 15) & ~15ll;
   if (n_raw < 0 || (huf && (n_huf < 0 || huf_T <= 0)) ||
       (fse_ll && (n_fse <= 0 || fse_T < 0)) ||
-      (host_ll && (n_host <= 0 || host_T < 0)))
+      (host_ll && (n_host <= 0 || host_T < 0)) || W < 0 || S < 0 ||
+      O > (1ll << 30) || O + W > (1ll << 31) - 1 || n > 0x7fffffff ||
+      win_row < W || out_row < O || stage < 0 || (stage & 15) ||
+      o16 + stage > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
   p.meta = static_cast<const i64*>(meta);
@@ -878,10 +794,10 @@ extern "C" int zt_lz_decode(
   p.win_start = static_cast<const i64*>(win_start);
   p.out = static_cast<uint8_t*>(out);
   p.O = O;
+  p.O16 = o16;
   p.out_stride = out_stride;
   p.out_row = out_row;
   p.out_start = static_cast<const i64*>(out_start);
-  p.L = O;
   p.S = S;
   p.stage = stage;
   p.bad = static_cast<int32_t*>(bad);
@@ -889,5 +805,14 @@ extern "C" int zt_lz_decode(
   p.code_scratch = static_cast<int32_t*>(code_scratch);
   p.search_rounds = search_rounds;
   p.jump_rounds = jump_rounds;
-  return launch(p, n, stream);
+  const long long dyn = o16 + stage;
+  // the default 48 KB limit counts the static shared memory too, so opt in
+  // on every launch rather than from a threshold on the dynamic size alone
+  cudaError_t err = cudaFuncSetAttribute(
+      lz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dyn));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lz_kernel<<<static_cast<unsigned>(n), kThreads, static_cast<size_t>(dyn),
+              static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -64,7 +64,7 @@ from ..errors import ZstdError, ZstdErrorCode
 from ..ops import device_fse as df
 from ..ops import device_huf as dh
 from ..ops._launch import check_flag, resolve_device
-from ..ops.execseq import LaneSources, execute, execute_lanes, lanes_plain
+from ..ops.execseq import LaneSources, execute_lanes
 from ..utils import trace
 from ..utils.xxhash import content_checksum
 from .block import (EntropyState, decode_literals, decode_sequence_headers,
@@ -862,15 +862,11 @@ def ops_to_device(ops: dict, device) -> dict:
 
 def _fused_decode(meta, src, S, O, window, **at):
     """Decode lanes (meta int64 [N, 12], sources ``execseq.LaneSources``;
-    `at`: ``execute_lanes``' window and output starts): on a card one
-    launch of ``execute_lanes`` over every lane, and never anything else;
-    on the CPU its plain version, ``lanes_plain`` (the torch assembly,
-    EXEC_LANES lanes at a time), through this module's ``execute``.
-    Returns (rows or the updated output, the lanes' flags int32 [N])."""
-    if meta.device.type == "cuda":
-        return execute_lanes(meta, src, S, O, window, **at)
-    return lanes_plain(meta, src, S, O, window, run=execute,
-                       chunk=EXEC_LANES, **at)
+    `at`: ``execute_lanes``' window and output starts) through
+    ``execute_lanes``: one launch over every lane on a card, its plain
+    version ``lanes_plain`` on the CPU.  Returns (rows or the updated
+    output, the lanes' flags int32 [N])."""
+    return execute_lanes(meta, src, S, O, window, **at)
 
 
 # the executor's flag bits (ops.execseq.lane_flags), as the error says them

@@ -45,15 +45,15 @@ held to.
    checked against the plain version on each window and timed in turns
    (the baselines, the kernel twice, the baselines in reverse).
 
-``capture_exec``, ``run_lanes``, ``exec_args``, ``lz_work``,
-``lz_corrupt`` and ``lz_corrupt_lanes`` serve the LZ executor kernel
-(``csrc/lz_exec.cu``), which chip_smoke.py and the card tests check and
-time on the calls the decode plane makes; ``capture_parse``,
-``run_parse``, ``parse_lane``, ``parse_passes``, ``pass_cycles``,
-``parse_work`` and ``parse_rows`` serve the encode plane's parse kernel
-(``csrc/lz_parse.cu``) the same way, and ``capture_assemble``,
-``run_assemble``, ``assemble_lane``, ``assemble_passes`` and
-``assemble_work`` its assembly kernel (``csrc/assemble.cu``).
+``capture_exec``, ``run_lanes``, ``exec_args``, ``lz_work`` and
+``lz_corrupt_lanes`` serve the LZ executor kernel (``csrc/lz_exec.cu``),
+which chip_smoke.py and the card tests check and time on the calls the
+decode plane makes; ``capture_parse``, ``run_parse``, ``parse_lane``,
+``parse_passes``, ``pass_cycles`` and ``parse_work`` serve the encode
+plane's parse kernel (``csrc/lz_parse.cu``) the same way, and
+``capture_assemble``, ``run_assemble``, ``assemble_lane``,
+``assemble_passes`` and ``assemble_work`` its assembly kernel
+(``csrc/assemble.cu``).
 
 3. The parse kernel (``csrc/lz_parse.cu``) on the main path's calls of
    ``lz_parse.parse_lanes`` (``parse_windows``: the encode cell's first
@@ -267,49 +267,18 @@ def run_lanes(call, fn=None):
 
 
 def exec_args(call) -> list:
-    """``execute``'s operands for all the lanes of a ``capture_exec``
-    record, as its plain version assembles them (each lane's window
-    gathered from its row; win_len last)."""
-    seen = []
-
-    def record(*args):
-        seen.append(args)
-        return (torch.zeros_like(args[0]),
-                torch.zeros(args[0].shape[0], dtype=torch.int32,
-                            device=args[0].device))
-
-    run_lanes(call, lambda **c: execseq.lanes_plain(
-        **c, run=record, chunk=max(c["meta"].shape[0], 1)))
-    return list(seen[0])
-
-
-def lz_corrupt(rng, B: int, S: int, O: int, W: int, dev,
-               broadcast: bool = False) -> list:
-    """``execute`` operands no decoder would produce: random literal rows
-    of O bytes and window bytes (one row for all lanes when `broadcast`),
-    ll, ml and off random int32 (half of them small), n_seq past both ends,
-    last_lit any int64, out_len up to O, win_len up to 2 W."""
-    def i32(mod):
-        v = rng.integers(-2**31, 2**31, (B, S)).astype(np.int32)
-        small = rng.random((B, S)) < 0.5
-        return torch.from_numpy(np.where(small, v % mod, v).astype(np.int32))
-
-    window = torch.from_numpy(rng.integers(0, 256, (1 if broadcast else B, W),
-                                           dtype=np.uint8))
-    args = [torch.from_numpy(rng.integers(0, 256, (B, O), dtype=np.uint8)),
-            window, i32(40), i32(60), i32(2 * O + W),
-            torch.from_numpy(rng.integers(-3, S + 4, B)),
-            torch.from_numpy(rng.integers(-2**40, 2**40, B)),
-            torch.from_numpy(rng.integers(-5, O + 1, B)),
-            torch.from_numpy(rng.integers(0, 2 * W + 1, B))]
-    args = [a.to(dev) for a in args]
-    if broadcast:
-        args[1] = args[1].expand(B, W)
-    return args
+    """``execseq.execute_plain``'s operands for all the lanes of a
+    ``capture_exec`` record: ``execseq.assemble``'s, with each lane's
+    window from its row (``execseq.lane_windows``) second."""
+    lit, *ops = execseq.assemble(call["meta"], call["src"], call["S"],
+                                 call["O"])
+    window = call["window"]
+    W = window.shape[1] if call["W"] is None else call["W"]
+    return [lit, execseq.lane_windows(window, call["win_start"], W), *ops]
 
 
 def lz_corrupt_lanes(rng, N: int, S: int, O: int, W: int, dev,
-                     sources: str = "all") -> dict:
+                     sources: str = "all", broadcast: bool = False) -> dict:
     """An ``execute_lanes`` call (a ``capture_exec`` record) no planner
     would make: random sources (a pool, Huffman rows of a random width T,
     FSE rows narrower than S, host rows; `sources` "all", or "raw" for the
@@ -318,7 +287,8 @@ def lz_corrupt_lanes(rng, N: int, S: int, O: int, W: int, dev,
     of what it indexes: literal kinds 0-2, pool_base and huf_lane0 past
     the pool and the rows, pool_len 0-2, huf_seg from -2 to O, seq kinds
     0-3, fse_lane and host_row past their rows, n_seq past S, lit_regen
-    any, out_len up to O, win_len up to 2 W; windows of W bytes a lane."""
+    any, out_len up to O, win_len up to 2 W; windows of W bytes a lane, or
+    with `broadcast` one row for every lane (stride 0)."""
     def i32(shape, mod):
         v = rng.integers(-2**31, 2**31, shape).astype(np.int32)
         return np.where(rng.random(shape) < 0.5, v % mod, v).astype(np.int32)
@@ -348,9 +318,10 @@ def lz_corrupt_lanes(rng, N: int, S: int, O: int, W: int, dev,
         t.to(dev) if isinstance(t, torch.Tensor) else
         tuple(r.to(dev) for r in t) if isinstance(t, tuple) else t
         for t in src))
-    window = torch.from_numpy(rng.integers(0, 256, (N, W), dtype=np.uint8))
+    window = torch.from_numpy(rng.integers(
+        0, 256, (1 if broadcast else N, W), dtype=np.uint8)).to(dev)
     return {"meta": meta.to(dev), "src": src, "S": S, "O": O,
-            "window": window.to(dev), "win_start": None, "W": None,
+            "window": window.expand(N, W), "win_start": None, "W": None,
             "out": None, "out_start": None}
 
 
@@ -601,52 +572,6 @@ def assemble_work(call, out) -> tuple[int, int]:
                + int(torch.where(raw, 0, seq["tbl_len"].long()).sum())
                + 25 * B + 4 * 281)
     return n_bytes, 40 * int(ns.sum()) + 10 * int(lits.sum()) + rows.numel()
-
-
-def parse_rows(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
-    """Seeded rows of width n for the parse and their n_valid: text,
-    noise, a byte run and ``b"ab"`` runs, the n_valid edges 0, 3, n - 1
-    and n, repeats of 639, 640, 641 and 700 bytes (the (8, 8) rounds
-    extend at most 640), a match that runs into n, one clipped by n_valid
-    with the match going on past it, and one offset repeated with and
-    without literals between (rep0)."""
-    rng = np.random.default_rng(seed)
-    words = [b"alpha ", b"bravo ", b"charlie ", b"delta ", b"echo ",
-             b"foxtrot ", b"golf ", b"hotel "]
-    rows, nvs = [], []
-
-    def text(k):
-        return b"".join(words[i] for i in rng.integers(0, 8, k // 5 + 2))[:k]
-
-    def noise(k):
-        return bytes(rng.integers(0, 256, k, dtype=np.uint8))
-
-    def add(data, nv=None, fill=b""):
-        r = np.zeros(n, np.uint8)
-        body = (data + fill)[:n]
-        r[:len(body)] = np.frombuffer(body, np.uint8)
-        rows.append(r)
-        nvs.append(min(len(data), n) if nv is None else nv)
-
-    add(text(n))
-    add(noise(n))
-    add(b"Q" * (n // 2) + text(n // 2))
-    add(b"ab" * n)
-    for nv in (0, 3, n - 1, n):
-        add(text(n), nv)
-    for run in (639, 640, 641, 700):
-        x = noise(run)
-        add(noise(17) + x + x + text(n))
-    x = noise(n // 2 - 5)
-    add(noise(10) + x + x)                         # the match reaches n
-    x = noise(300)
-    add(noise(20) + x + x[:150], None, x[150:] + noise(n))  # clipped by nv
-    x = bytearray(noise(900))
-    y = bytearray(x)
-    for k in range(40, 900, 60):
-        y[k] ^= 0x5A                               # one literal, same offset
-    add(noise(5) + bytes(x) + bytes(y) + bytes(x) * 3)
-    return np.stack(rows), np.array(nvs, np.int32)
 
 
 def card() -> str:

@@ -2,20 +2,19 @@
 of zstdsharp_tpu/ops/execseq.py, ZSTD_execSequence:2187 role, and of the
 reference decode plane's _fused_decode, its literal assembly included).
 
-``execute_lanes(meta, src, S, O, window, ...)`` is the decode plane's
-entry: every lane of a batch straight from the plane's sources (the
-literal pool, the Huffman kernel's int32 rows, the FSE kernel's and the
-host's sequence rows) through its int64 meta row, its window and its
-output optionally at a start within a row (a multi-block round reads and
-writes its frame accumulator in place).  CPU tensors run its plain
-version (``lanes_plain``: ``assemble``, the torch literal assembly, then
-``make_executor``'s run and ``lane_flags``); CUDA tensors launch
+``execute_lanes(meta, src, S, O, window, ...)`` is the one entry: every
+lane of a batch straight from the decode plane's sources (the literal
+pool, the Huffman kernel's int32 rows, the FSE kernel's and the host's
+sequence rows) through its int64 meta row, its window and its output
+optionally at a start within a row (a multi-block round reads and writes
+its frame accumulator in place).  CUDA tensors launch
 ``csrc/lz_exec.cu``'s ``zt_lz_decode`` once for all lanes (one block per
 lane walking its sequences in order; its source note says what bounds it
-and how the design answers).  ``execute(lit, window, ll, ml, off, n_seq,
-last_lit, out_len, win_len)`` takes the assembled operands and reaches
-the same kernel body through ``zt_lz_exec``.  Each gives the same bytes
-and the same per-lane flags as its plain version on any operands.
+and how the design answers); CPU tensors run its plain version,
+``lanes_plain``: ``assemble`` (the torch literal assembly) gives each
+lane's operands, and ``execute_plain`` (``make_executor``'s run and
+``lane_flags``) executes them.  Both give the same bytes and the same
+per-lane flags on any meta and sources.
 
 The flags are libzstd's checks on a block's sequences (ZSTD_execSequence,
 ZSTD_decompressSequences), computed on the operands: bit 0, the literal
@@ -220,8 +219,11 @@ def lane_flags(ll, ml, off, n_seq, last_lit, out_len, win_len
 
 def execute_plain(lit, window, ll, ml, off, n_seq, last_lit, out_len,
                   win_len) -> tuple[torch.Tensor, torch.Tensor]:
-    """``execute``'s plain version on the operands' device:
-    ``make_executor``'s run and ``lane_flags``."""
+    """The plain executor on assembled operands, on their device: lit uint8
+    [B, O] (the literal rows are as wide as the output, as ``assemble``
+    builds them), window uint8 [B, W], ll/ml/off [B, S] (u32 bits),
+    n_seq/last_lit/out_len/win_len [B] -> (uint8 [B, O], bytes at or past
+    out_len zero, by ``make_executor``'s run; int32 [B], ``lane_flags``)."""
     B, O = lit.shape
     return (make_executor(B, ll.shape[1], O, window.shape[1], O)(
                 lit, window, ll, ml, off, n_seq, last_lit, out_len),
@@ -248,61 +250,6 @@ def _check_window(window, B: int, dev: torch.device) -> int:
     if ws not in (0, W):
         raise ValueError(f"window: row stride {ws}, expected 0 or {W}")
     return ws
-
-
-def execute(lit, window, ll, ml, off, n_seq, last_lit, out_len, win_len
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Execute each lane's sequences: lit uint8 [B, O] (the literal rows
-    are as wide as the output, as the decode plane builds them), window
-    uint8 [B, W] (contiguous, or one row broadcast with stride 0),
-    ll/ml/off int32 [B, S] (u32 bits), n_seq/last_lit/out_len/win_len
-    int64 [B] -> (uint8 [B, O], bytes at or past out_len zero; int32 [B],
-    each lane's ``lane_flags``).  CPU tensors run the plain versions; CUDA
-    tensors launch the kernel on the current stream.  Any other device,
-    dtype, shape or layout raises, and so does an O outside [1, MAX_O] on
-    the card."""
-    if not isinstance(lit, torch.Tensor):
-        raise TypeError(f"lit: expected a torch.Tensor, got {type(lit)}")
-    if lit.dim() != 2:
-        raise ValueError(f"lit: shape {tuple(lit.shape)}, expected [B, L]")
-    dev = lit.device
-    B, O = lit.shape
-    check_operand("lit", lit, (B, O), dev, torch.uint8)
-    ws = _check_window(window, B, dev)
-    W = window.shape[1]
-    if not isinstance(ll, torch.Tensor) or ll.dim() != 2:
-        raise ValueError("ll: expected an int32 tensor [B, S]")
-    S = ll.shape[1]
-    for name, t in (("ll", ll), ("ml", ml), ("off", off)):
-        check_operand(name, t, (B, S), dev, torch.int32)
-    for name, t in (("n_seq", n_seq), ("last_lit", last_lit),
-                    ("out_len", out_len), ("win_len", win_len)):
-        check_operand(name, t, (B,), dev, torch.int64)
-    if dev.type == "cpu":
-        return execute_plain(lit, window, ll, ml, off, n_seq, last_lit,
-                             out_len, win_len)
-    check_cuda(dev)
-    if not 0 < O <= MAX_O:
-        raise ValueError(f"O {O}: the kernel takes 1 to {MAX_O}")
-    out = torch.empty((B, O), dtype=torch.uint8, device=dev)
-    bad = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return out, bad
-    # written only by lanes that take the exact path (corrupt operands)
-    seg = torch.empty((B, 2, S + 1), dtype=torch.int64, device=dev)
-    code = torch.empty((B, O), dtype=torch.int32, device=dev)
-    search_rounds, jump_rounds = _rounds(S, O)
-    launch("lz_exec", dev, _build.load().zt_lz_exec, lit.data_ptr(), O,
-           window.data_ptr(), W, ws, ll.data_ptr(), ml.data_ptr(),
-           off.data_ptr(), S, n_seq.data_ptr(), last_lit.data_ptr(),
-           out_len.data_ptr(), win_len.data_ptr(), out.data_ptr(), O,
-           bad.data_ptr(), seg.data_ptr(), code.data_ptr(), search_rounds,
-           jump_rounds, B)
-    execute.launches += 1
-    return out, bad
-
-
-execute.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -336,8 +283,9 @@ def _dyn_slice(flat: torch.Tensor, starts: torch.Tensor, size: int):
 def assemble(meta, src: LaneSources, S: int, O: int) -> tuple:
     """The torch literal assembly (reference _fused_decode with its L = O:
     the literal rows are as wide as the output): meta int64 [B, 12] ->
-    ``execute``'s operands but the window: (lit uint8 [B, O], ll/ml/off
-    int32 [B, S], n_seq, last_lit, out_len, win_len int64 [B])."""
+    ``execute_plain``'s operands but the window: (lit uint8 [B, O],
+    ll/ml/off int32 [B, S], n_seq, last_lit, out_len, win_len int64
+    [B])."""
     dev = meta.device
     B, L = meta.shape[0], O
     lit_kind, pool_base, pool_len, lane0 = meta[:, 0], meta[:, 1], \
@@ -388,31 +336,38 @@ def assemble(meta, src: LaneSources, S: int, O: int) -> tuple:
             meta[:, 10].contiguous(), meta[:, 11].contiguous())
 
 
+def lane_windows(window, win_start, W: int) -> torch.Tensor:
+    """Each lane's W-byte window: the bytes at ``clamp(win_start[k], 0, A -
+    W)`` of row k of window [N, A] (win_start None: 0); the rows as they
+    are, a broadcast row included, when that is all of them."""
+    A = window.shape[1]
+    if win_start is None:
+        if W == A:
+            return window
+        win_start = torch.zeros(window.shape[0], dtype=torch.int64,
+                                device=window.device)
+    return torch.gather(window, 1, win_start.clamp(0, A - W)[:, None]
+                        + torch.arange(W, device=window.device))
+
+
 def lanes_plain(meta, src: LaneSources, S: int, O: int, window,
                 win_start=None, W: int | None = None, out=None,
-                out_start=None, run=None, chunk: int = 64):
+                out_start=None, chunk: int = 64):
     """``execute_lanes``' plain version on the operands' device, `chunk`
     lanes at a time (lanes are independent; this bounds the plain
-    executor's [chunk, O] int64 temporaries): each lane's window gathered
-    from its row, ``assemble``, `run` (default ``execute_plain``; any
-    callable with ``execute``'s contract) and the rows scattered into
-    `out` at their clamped starts, or returned as [N, O]."""
-    run = execute_plain if run is None else run
+    executor's [chunk, O] int64 temporaries): ``assemble``, each lane's
+    window (``lane_windows``), ``execute_plain`` and the rows scattered
+    into `out` at their clamped starts, or returned as [N, O]."""
     dev = meta.device
-    N, A = meta.shape[0], window.shape[1]
-    W = A if W is None else W
-    gather = win_start is not None or W != A
+    N = meta.shape[0]
+    W = window.shape[1] if W is None else W
     rows, flags = [], []
     for c0 in range(0, N, chunk):
         sl = slice(c0, c0 + chunk)
-        win = window[sl]
-        if gather:
-            st = (win_start[sl] if win_start is not None else
-                  torch.zeros(win.shape[0], dtype=torch.int64, device=dev))
-            win = torch.gather(win, 1, st.clamp(0, A - W)[:, None]
-                               + torch.arange(W, device=dev))
         lit, *ops = assemble(meta[sl], src, S, O)
-        r, bad = run(lit, win, *ops)
+        win = lane_windows(window[sl], None if win_start is None
+                           else win_start[sl], W)
+        r, bad = execute_plain(lit, win, *ops)
         flags.append(bad)
         if out is None:
             rows.append(r)
