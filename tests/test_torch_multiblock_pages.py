@@ -26,7 +26,8 @@ LENGTHS = (1 << 20, (1 << 20) + 20_000, (1 << 20) + 4_000)
 WINDOW = 1 << 19
 MB_KEYS = ("n.mb_frames", "n.mb_blocks", "n.mb_groups", "n.mb_rounds",
            "n.mb_lit_bytes", "n.mb_host_lit_bytes", "n.mb_treeless_host",
-           "plan.multiblock", "mb_exec.upload")
+           "n.mb_native_frames", "n.mb_python_frames", "plan.multiblock",
+           "mb_exec.upload")
 
 
 @pytest.fixture(scope="module")
@@ -164,7 +165,9 @@ def test_multiblock_counters_match_the_block_headers(pages, materialized):
     # no treeless section takes a device lane
     assert t["n.mb_treeless_host"] == sum(
         lt == 3 for b in blocks for _, lt, _ in b) > 0
-    assert 0 < t["plan.multiblock"] <= t["plan.python"] <= t["plan"]
+    # the native block walk: its span inside the native planner's
+    assert t["n.mb_native_frames"] == 3 and "plan.python" not in t
+    assert 0 < t["plan.multiblock"] <= t["plan.native"] <= t["plan"]
     assert 0 < t["mb_exec.upload"] <= t["mb_exec"]
 
 

@@ -30,7 +30,10 @@ the header probe ``scan_eligibility``, the shape buckets and the caps
 mirror the reference's, but for the FSE kernel's word window
 (``ops.device_fse.MAX_W``, 32 KiB where the reference's is 8 KiB), which
 holds a 128 KB block's sequence bitstream.  The reference's JAX upload
-fence is a ``torch.cuda.Event``.
+fence is a ``torch.cuda.Event``.  The blocks of multi-block frames are
+walked by the port's own C++ (``csrc/mb_plan.cpp``, ``_walk_multiblock``),
+one call a batch, with the reference's Python walk (``_plan_multiblock``)
+as its plain version.
 
 Coverage is the reference's envelope: single-block frames up to 128 KB and
 multi-block frames up to 4 MB (as dependent execution rounds) run on the
@@ -119,7 +122,9 @@ class DevicePlan:
     nb: "_NativeOps"
     n_frames: int = 0
     blocks: list = field(default_factory=list)
-    host_seqs: list = field(default_factory=list)  # (ll, ml, of) np arrays
+    # (ll, ml, of) np arrays; the native block walk's are views of the
+    # ctx's pooled rows (``_NativeOps.walk_multiblock``)
+    host_seqs: list = field(default_factory=list)
     host_routed: dict = field(default_factory=dict)  # frame_idx -> reason
     max_out: int = 0
     max_seq: int = 0
@@ -249,7 +254,9 @@ class _NativeOps:
     ``fse_ops`` slice lane windows for ops.device_huf.decode_lanemajor /
     ops.device_fse.decode_lanemajor.  ``fence`` is a ``torch.cuda.Event``
     recorded after the batch's uploads (None on the CPU): once it has
-    completed, the buffers may be rewritten (pool recycling)."""
+    completed, the buffers may be rewritten (pool recycling).  The native
+    block walk's sequence rows (``walk_multiblock``) live in a pooled
+    buffer too, rewritten once the ctx plans another batch."""
 
     LANES = 1024
     HUF_MAXW = dh.MAX_W
@@ -267,6 +274,8 @@ class _NativeOps:
         self.ctx.s_cap = self.S_CAP
         self.ctx.huf_maxw = self.HUF_MAXW
         self.ctx.fse_maxw = self.FSE_MAXW
+        self._seqs = np.empty((3, 0), np.uint32)
+        self.seq_off = 0
 
     def _needs(self, n_frames: int, total_in: int):
         """(Huffman lanes, FSE lanes, pool bytes) a batch may need."""
@@ -285,6 +294,7 @@ class _NativeOps:
                   "max_seq", "max_out"):
             setattr(c, k, 0)
         self.fence = None
+        self.seq_off = 0
         huf_need, fse_need, pool_need = self._needs(n_frames, total_in)
         if huf_need > c.huf_cap:
             self._alloc_huf(huf_need)
@@ -358,23 +368,59 @@ class _NativeOps:
         v = np.frombuffer(b, np.uint8)
         return v.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), v
 
-    def plan_all(self, frames):
-        """Plan every frame in one native call.  Returns (rcs [N] int32,
-        metas [N, 12] int32)."""
-        n = len(frames)
-        buf = b"".join(map(bytes, frames))
-        offs = np.zeros(n + 1, np.int64)
-        np.cumsum(np.fromiter(map(len, frames), np.int64, n), out=offs[1:])
+    def plan_all(self, buf: np.ndarray, offs: np.ndarray):
+        """Plan every frame of the batch `buf` (uint8, the frames joined;
+        frame i spans [offs[i], offs[i + 1])) in one native call.  Returns
+        (rcs [N] int32, metas [N, 12] int32)."""
+        n = len(offs) - 1
         self._ensure(pool_need=len(buf), huf_need=4 * n, fse_need=n)
         metas = np.zeros((n, 12), np.int32)
         rcs = np.zeros(n, np.int32)
-        bufv = np.frombuffer(buf, np.uint8)
         self.lib.zt_dplane_batch(
             ctypes.byref(self.ctx),
-            bufv.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
             n, self._i32p(metas), self._i32p(rcs))
         return rcs, metas
+
+    def walk_multiblock(self, buf, offs, idx, blk_cap: int, seq_cap: int):
+        """Walk the multi-block frames idx (int64, in order) of the batch
+        `buf` in one call of ``csrc/mb_plan.cpp``'s ``zt_mb_plan``, into
+        this ctx's pool and Huffman lanes, its sequences into at least
+        seq_cap pooled rows past the batch's earlier ones.  Returns (frames
+        planned, the ``native.MbOut``, frame rows, block rows, sequence
+        rows [3, n]: ll, ml, of)."""
+        frows = np.empty((len(idx), _MB_FCOLS), np.int64)
+        brows = np.empty((blk_cap, _MB_BCOLS), np.int64)
+        if self._seqs.shape[1] - self.seq_off < seq_cap:
+            # rows the batch already holds keep the old buffer alive
+            self._seqs = np.empty((3, max(seq_cap, 2 * self._seqs.shape[1])),
+                                  np.uint32)
+            self.seq_off = 0
+        seqs = self._seqs[:, self.seq_off:]
+        out = native.MbOut(
+            maxlog=dh.MAXLOG, content_cap=MB_CONTENT_CAP,
+            window_cap=MB_WINDOW_CAP, frames=frows.ctypes.data,
+            blocks=brows.ctypes.data, ll=seqs[0].ctypes.data,
+            ml=seqs[1].ctypes.data, of=seqs[2].ctypes.data,
+            blk_cap=blk_cap, seq_cap=seqs.shape[1])
+        k = native.get_mb_lib().zt_mb_plan(
+            ctypes.byref(self.ctx), buf.ctypes.data, offs.ctypes.data,
+            idx.ctypes.data, len(idx), ctypes.byref(out))
+        self.seq_off += out.n_seqs
+        return int(k), out, frows, brows, seqs
+
+    def mark(self) -> tuple:
+        """The counters a frame's planning moves (``restore`` takes them
+        back)."""
+        c = self.ctx
+        return (c.pool_off, c.n_huf, c.n_fse, c.huf_wmax, c.fse_wmax,
+                c.max_seq)
+
+    def restore(self, mark: tuple) -> None:
+        c = self.ctx
+        (c.pool_off, c.n_huf, c.n_fse, c.huf_wmax, c.fse_wmax,
+         c.max_seq) = mark
 
     def pack_huf(self, payload: bytes, weights, n_out: int) -> int:
         self._ensure(pool_need=0, huf_need=1, fse_need=0)
@@ -510,13 +556,16 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
     chains resolve at plan time, starting from the dictionary's entropy
     when there is one, and each block records its output offset for the
     dependent-round executor.  Returns an error string to host-route, or
-    None on success.
+    None on success.  The Python walk: it plans the frames of a dictionary
+    batch and those the native walk (``_walk_multiblock``) refuses, whose
+    plan it is the plain version of.
 
     A planned frame adds to the counters (``utils.trace.count``)
     "n.mb_lit_bytes" (its compressed blocks' regenerated literal bytes),
     "n.mb_host_lit_bytes" (those of Huffman sections decoded here on the
-    host, whatever the reason) and "n.mb_treeless_host" (its treeless
-    sections decoded here); a host-routed frame adds nothing."""
+    host, whatever the reason), "n.mb_treeless_host" (its treeless
+    sections decoded here) and "n.mb_python_frames" (1); a host-routed
+    frame adds nothing."""
     content = int(hdr.frame_content_size)
     ent = _start_entropy(ddict)
     blocks = []
@@ -631,7 +680,114 @@ def _plan_multiblock(plan, fi, frame, hdr, ddict=None, timings=None):
     trace.count("mb_lit_bytes", lit_bytes, timings)
     trace.count("mb_host_lit_bytes", host_lit_bytes, timings)
     trace.count("mb_treeless_host", treeless_host, timings)
+    trace.count("mb_python_frames", 1, timings)
     return None
+
+
+# csrc/mb_plan.cpp: a call's stop reasons, the buffers an MB_ROOM stop
+# names, and the widths of its frame and block rows
+_MB_REFUSED, _MB_ROOM = 1, 2
+_R_POOL, _R_HUF, _R_BLOCKS, _R_SEQS = 1, 2, 4, 8
+_MB_FCOLS, _MB_BCOLS = 8, 11
+
+
+def _multiblock_content(frame):
+    """The content size of a frame the native planner handed on (``rc <
+    0``: it has read the frame header and the first block header) whose
+    first block is not its last; None for a single-block frame."""
+    fhd = int(frame[4])
+    single = (fhd >> 5) & 1
+    p = 6 - single + (0, 1, 2, 4)[fhd & 3]
+    fs = (single, 2, 4, 8)[fhd >> 6]
+    if int(frame[p + fs]) & 1:
+        return None
+    return (int.from_bytes(bytes(frame[p:p + fs]), "little")
+            + (256 if fs == 2 else 0))
+
+
+def _walk_multiblock(plan, run, frames, buf, offs, timings=None) -> None:
+    """Plan the multi-block frames `run` ([(frame_idx, content size)], in
+    frame order) of a batch without a dictionary by the native walk
+    (``csrc/mb_plan.cpp``): one call walks every block of every frame, with
+    the rules of the Python walk ``_plan_multiblock``, and fills the same
+    plan.  A frame it refuses is planned in place by the Python walk, which
+    gives its route, so the pool and the lanes keep frame order; where a
+    buffer runs out, it is grown and the walk called again from that
+    frame.
+
+    timings: "plan.multiblock" inside "plan.native" (each call and the
+    rows it gives), "plan.host_seqs" (its sequence decodes, timed by the
+    call's own clock), the Python walk's counters summed over the frames
+    it planned, and "n.mb_native_frames" (those frames)."""
+    nb = plan.nb
+    idx = np.array([fi for fi, _ in run], np.int64)
+    content = sum(c for _, c in run)
+    blocks = sum(c >> 16 for _, c in run) + 2 * len(run) + 16
+    blk_cap, seq_cap = blocks, content // 8 + 2 * nb.S_CAP
+    nb._ensure(pool_need=int(offs[idx + 1].sum() - offs[idx].sum())
+               + content // 8, huf_need=4 * blocks, fse_need=0)
+    i = 0
+    while i < len(idx):
+        with trace.stage("plan.native", timings, plane="decode"):
+            with trace.stage("plan.multiblock", timings, plane="decode"):
+                k, out, frows, brows, seqs = nb.walk_multiblock(
+                    buf, offs, idx[i:], blk_cap, seq_cap)
+                _take_native_rows(plan, idx[i:i + k], frows, brows, seqs,
+                                  timings)
+        trace.add("plan.host_seqs", out.seq_ns * 1e-9, timings)
+        i += k
+        if out.stop == _MB_REFUSED:
+            fi = int(idx[i])
+            _plan_or_route(plan, fi, frames[fi], timings=timings)
+            i += 1
+        elif out.stop == _MB_ROOM:
+            if out.room & _R_POOL:
+                nb._ensure(pool_need=out.want_pool + (1 << 21), huf_need=0,
+                           fse_need=0)
+            if out.room & _R_HUF:
+                nb._ensure(pool_need=0, huf_need=out.want_huf + 4,
+                           fse_need=0)
+            if out.room & _R_BLOCKS:
+                blk_cap = max(2 * blk_cap, 2 * out.want_blocks + 2)
+            if out.room & _R_SEQS:
+                seq_cap = max(2 * seq_cap, out.want_seqs + nb.S_CAP)
+
+
+def _take_native_rows(plan, idx, frows, brows, seqs, timings) -> None:
+    """The plan of the frames idx that one native walk planned: their
+    ``mb_frames`` entries with a ``_BlockPlan`` a block, and their host
+    sequence rows (views of `seqs`)."""
+    k = len(idx)
+    if not k:
+        return
+    fr = frows[:k].tolist()
+    br = brows[:fr[-1][0] + fr[-1][1]].tolist()
+    ll, ml, of = seqs
+    host = plan.host_seqs
+    sums = [0, 0, 0]
+    for fi, (b0, nblk, content, cks, window, *counts) in zip(idx.tolist(),
+                                                             fr):
+        blocks = []
+        for (out_len, out_off, regen, lit_kind, pool_base, pool_len, lane0,
+             seg, seq_kind, n_seq, s0) in br[b0:b0 + nblk]:
+            b = _BlockPlan(frame_idx=fi, out_len=out_len, lit_regen=regen,
+                           lit_kind=lit_kind, pool_base=pool_base,
+                           pool_len=pool_len, huf_lane0=lane0, huf_seg=seg,
+                           seq_kind=seq_kind, n_seq=n_seq, out_off=out_off)
+            if seq_kind == 2:
+                b.host_row = len(host)
+                host.append((ll[s0:s0 + n_seq], ml[s0:s0 + n_seq],
+                             of[s0:s0 + n_seq]))
+                plan.max_seq = max(plan.max_seq, n_seq)
+            blocks.append(b)
+        plan.mb_frames.append({"frame_idx": fi, "content": content,
+                               "checksum": cks, "window": window,
+                               "blocks": blocks})
+        sums = [a + c for a, c in zip(sums, counts)]
+    for name, v in zip(("mb_lit_bytes", "mb_host_lit_bytes",
+                        "mb_treeless_host"), sums):
+        trace.count(name, v, timings)
+    trace.count("mb_native_frames", k, timings)
 
 
 def _add_huf_lanes(plan, b, weights, sf, streams, regen) -> bool:
@@ -672,9 +828,11 @@ def _add_huf_lanes(plan, b, weights, sf, streams, regen) -> bool:
 def plan_batch(frames, ddict=None, timings=None) -> DevicePlan:
     """Host header pass: split each frame into device work or a host route
     (reference plan_batch).  Without a dictionary the native planner plans
-    single-block frames in one call; frames outside its scope take the
-    Python planner (``_plan_python``), whose lanes pack into the same
-    native buffers.
+    single-block frames in one call, and the native block walk
+    (``_walk_multiblock``) the multi-block frames it hands on, one call for
+    each run of them; the other frames outside its scope take the Python
+    planner (``_plan_python``), whose lanes pack into the same native
+    buffers.
 
     ddict: a parsed dictionary (``dictionary.ParsedDict``).  The native
     planner has no dictionary input, so, as in the reference, every frame
@@ -684,11 +842,14 @@ def plan_batch(frames, ddict=None, timings=None) -> DevicePlan:
     dictionary over 128 KB sends every frame to the host.
 
     timings: the stage sink (``utils.trace``): "plan.native" (the native
-    planner's call), "plan.python" (each frame the Python planner takes)
-    and, inside it, "plan.multiblock" (each multi-block frame's block walk)
-    and "plan.host_seqs" (its host sequence decodes); the multi-block
-    frames' counters "n.mb_lit_bytes", "n.mb_host_lit_bytes" and
-    "n.mb_treeless_host" (``_plan_multiblock``)."""
+    planner's calls, the block walk's with their rows included),
+    "plan.python" (each frame the Python planner takes), "plan.multiblock"
+    (the block walks: the native walk's inside "plan.native", a frame of
+    the Python walk inside "plan.python") and "plan.host_seqs" (the host
+    sequence decodes); the multi-block frames' counters "n.mb_lit_bytes",
+    "n.mb_host_lit_bytes", "n.mb_treeless_host" (``_plan_multiblock``),
+    "n.mb_native_frames" and "n.mb_python_frames" (the frames each walk
+    planned)."""
     plan = DevicePlan(nb=_native_ops_for(frames), n_frames=len(frames))
     if ddict is not None:
         plan.window = np.asarray(ddict.content)[-(1 << 17):].tobytes()
@@ -698,8 +859,13 @@ def plan_batch(frames, ddict=None, timings=None) -> DevicePlan:
         for fi, frame in enumerate(frames):
             _plan_or_route(plan, fi, frame, ddict, d_huf, timings)
         return plan
+    n = len(frames)
+    buf = np.frombuffer(b"".join(map(bytes, frames)), np.uint8)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, frames), np.int64, n), out=offs[1:])
     with trace.stage("plan.native", timings, plane="decode"):
-        rcs, metas = plan.nb.plan_all(frames)
+        rcs, metas = plan.nb.plan_all(buf, offs)
+    run = []  # multi-block frames for the native walk, in frame order
     for fi, frame in enumerate(frames):
         rc, m = int(rcs[fi]), metas[fi]
         if rc == 0:
@@ -720,12 +886,24 @@ def plan_batch(frames, ddict=None, timings=None) -> DevicePlan:
             plan.host_routed[fi] = _NATIVE_ROUTE.get(rc, f"native route {rc}")
             continue
         # rc < 0: outside the native planner's scope
+        content = _multiblock_content(frame)
+        if content is not None:
+            run.append((fi, content))
+            continue
+        if run:
+            _walk_multiblock(plan, run, frames, buf, offs, timings)
+            run = []
         _plan_or_route(plan, fi, frame, timings=timings)
+    if run:
+        _walk_multiblock(plan, run, frames, buf, offs, timings)
     return plan
 
 
 def _plan_or_route(plan, fi, frame, ddict=None, d_huf=None,
                    timings=None) -> None:
+    """Plan one frame in Python, or route it to the host with the reason;
+    a routed frame leaves no pool bytes, lanes or host rows behind."""
+    mark = plan.nb.mark(), len(plan.host_seqs), plan.max_seq
     with trace.stage("plan.python", timings, plane="decode"):
         try:
             err = _plan_python(plan, fi, frame, ddict, d_huf, timings)
@@ -733,6 +911,9 @@ def _plan_or_route(plan, fi, frame, ddict=None, d_huf=None,
             err = f"plan error: {e}"
     if err:
         plan.host_routed[fi] = err
+        plan.nb.restore(mark[0])
+        del plan.host_seqs[mark[1]:]
+        plan.max_seq = mark[2]
 
 
 def _plan_python(plan, fi, frame, ddict=None, d_huf=None, timings=None):

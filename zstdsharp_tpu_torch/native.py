@@ -55,7 +55,10 @@ The encode plane's table builders are the port's own source,
 ``zt_build_seq_tables``): ``get_tables_lib`` builds it with g++ into
 ``build/host/libzt_tables.<hash>.so`` by the same lock and atomic rename
 (the hash covers the source, the flags and the host) and raises with the
-compiler's error where it cannot.
+compiler's error where it cannot.  The decode planner's block walk of
+multi-block frames, ``zstdsharp_tpu_torch/csrc/mb_plan.cpp``
+(``zt_mb_plan``, its rows in an ``MbOut``), is built and loaded the same
+way by ``get_mb_lib`` into ``build/host/libzt_mb_plan.<hash>.so``.
 """
 
 from __future__ import annotations
@@ -83,6 +86,8 @@ EXT_SRC = _REPO / "native" / "ztpy.cpp"
 EXT_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 TABLES_SRC = _REPO / "zstdsharp_tpu_torch" / "csrc" / "host_tables.cpp"
 TABLES_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+MB_SRC = _REPO / "zstdsharp_tpu_torch" / "csrc" / "mb_plan.cpp"
+MB_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 
 class DPlaneCtx(ctypes.Structure):
@@ -120,9 +125,26 @@ class SeqChannel(ctypes.Structure):
     )
 
 
+class MbOut(ctypes.Structure):
+    """Mirror of ZtMbOut (csrc/mb_plan.cpp): one block-walk call's limits
+    in, its frame, block and sequence rows out (each pointer an array's
+    address), how far it went and why it stopped."""
+
+    _fields_ = (
+        [(n, ctypes.c_int64) for n in ("maxlog", "content_cap",
+                                       "window_cap")]
+        + [(n, ctypes.c_void_p) for n in ("frames", "blocks", "ll", "ml",
+                                          "of")]
+        + [(n, ctypes.c_int64) for n in
+           ("blk_cap", "seq_cap", "n_blocks", "n_seqs", "seq_ns", "stop",
+            "room", "want_pool", "want_huf", "want_blocks", "want_seqs")]
+    )
+
+
 _lock = threading.Lock()
 _lib = None
 _tables_lib = None   # csrc/host_tables.cpp, built and loaded
+_mb_lib = None       # csrc/mb_plan.cpp, built and loaded
 _lib_file = None     # the engine file get_lib loaded
 _ext_lock = threading.Lock()
 _ext = None          # the _ztpy extension module
@@ -329,12 +351,28 @@ def get_lib() -> ctypes.CDLL:
         return lib
 
 
+def _port_lib_path(src: Path, flags: tuple, stem: str) -> Path:
+    """Where this host's build of one of the port's own sources goes."""
+    key = hashlib.sha256(src.read_bytes())
+    key.update(" ".join(flags).encode())
+    key.update(f"{platform.node()} {platform.machine()}".encode())
+    return BUILD_DIR / f"{stem}.{key.hexdigest()[:16]}.so"
+
+
+def _port_lib(src: Path, flags: tuple, stem: str, what: str) -> ctypes.CDLL:
+    """One of the port's own sources, built with g++ if need be and
+    loaded; RuntimeError with the compiler's error where it cannot be
+    built."""
+    path = _port_lib_path(src, flags, stem)
+    err = _compile(path, ["g++", *flags, str(src), "-o"])
+    if err is not None:
+        raise RuntimeError(f"{what} ({src.name}) failed to build:\n{err}")
+    return ctypes.CDLL(str(path))
+
+
 def tables_lib_path() -> Path:
     """Where this host's build of the table builders' source goes."""
-    key = hashlib.sha256(TABLES_SRC.read_bytes())
-    key.update(" ".join(TABLES_FLAGS).encode())
-    key.update(f"{platform.node()} {platform.machine()}".encode())
-    return BUILD_DIR / f"libzt_tables.{key.hexdigest()[:16]}.so"
+    return _port_lib_path(TABLES_SRC, TABLES_FLAGS, "libzt_tables")
 
 
 def get_tables_lib() -> ctypes.CDLL:
@@ -347,12 +385,8 @@ def get_tables_lib() -> ctypes.CDLL:
     with _lock:
         if _tables_lib is not None:
             return _tables_lib
-        path = tables_lib_path()
-        err = _compile(path, ["g++", *TABLES_FLAGS, str(TABLES_SRC), "-o"])
-        if err is not None:
-            raise RuntimeError(f"the encode plane's table builders "
-                               f"({TABLES_SRC.name}) failed to build:\n{err}")
-        lib = ctypes.CDLL(str(path))
+        lib = _port_lib(TABLES_SRC, TABLES_FLAGS, "libzt_tables",
+                        "the encode plane's table builders")
         i64, vp = ctypes.c_int64, ctypes.c_void_p
         lib.zt_build_lit_tables.restype = i64
         lib.zt_build_lit_tables.argtypes = [i64] + [vp] * 7 + [i64]
@@ -360,6 +394,26 @@ def get_tables_lib() -> ctypes.CDLL:
         lib.zt_build_seq_tables.argtypes = [
             i64, vp, ctypes.POINTER(SeqChannel), i64, vp, vp, vp]
         _tables_lib = lib
+        return lib
+
+
+def get_mb_lib() -> ctypes.CDLL:
+    """The decode planner's block walk of multi-block frames
+    (``csrc/mb_plan.cpp``), built on first use and loaded.  Raises
+    RuntimeError with the compiler's error when it cannot be built."""
+    global _mb_lib
+    if _mb_lib is not None:
+        return _mb_lib
+    with _lock:
+        if _mb_lib is not None:
+            return _mb_lib
+        lib = _port_lib(MB_SRC, MB_FLAGS, "libzt_mb_plan",
+                        "the decode planner's block walk")
+        i64, vp = ctypes.c_int64, ctypes.c_void_p
+        lib.zt_mb_plan.restype = i64
+        lib.zt_mb_plan.argtypes = [ctypes.POINTER(DPlaneCtx), vp, vp, vp,
+                                   i64, ctypes.POINTER(MbOut)]
+        _mb_lib = lib
         return lib
 
 

@@ -7,13 +7,15 @@ with empty bodies, ZstdCompress.cs:5658; here the hooks are live).
 Register callbacks to observe frame lifecycle events; no cost beyond a list
 test when no callback is registered.
 
-Stage spans and counters (``stage``, ``count``): the device planes' entry
-points take a ``timings`` dict, the sink.  ``stage(name, sink)`` adds the
-block's host wall seconds to ``sink[name]``; with ``sync=<device>`` a CUDA
-device is synchronised first, so a stage that launches work ends when that
-work does.  ``count(name, n, sink)`` adds n to ``sink["n." + name]``.  A
-child span is named ``<parent>.<child>`` and runs inside its parent, so a
-parent's self time is its value minus its children's.
+Stage spans and counters (``stage``, ``add``, ``count``): the device
+planes' entry points take a ``timings`` dict, the sink.  ``stage(name,
+sink)`` adds the block's host wall seconds to ``sink[name]``; with
+``sync=<device>`` a CUDA device is synchronised first, so a stage that
+launches work ends when that work does.  ``add(name, seconds, sink)`` adds
+a time taken elsewhere (a native call's own clock).  ``count(name, n,
+sink)`` adds n to ``sink["n." + name]``.  A child span is named
+``<parent>.<child>`` and runs inside its parent, so a parent's self time is
+its value minus its children's.
 
 The profiler rule: a span given ``plane=`` holds host work only, and while
 torch.profiler records it also opens ``record_function("<plane>.<name>")``,
@@ -152,6 +154,13 @@ def stage(name: str, sink: dict | None, sync=None, plane: str | None = None):
     if sink is None and label is None:
         return _OFF
     return _Stage(name, sink, sync, label)
+
+
+def add(name: str, seconds: float, sink: dict | None) -> None:
+    """Add `seconds` timed elsewhere (a native call's own clock) to
+    `sink[name]` when `sink` is a dict and `seconds` is not 0."""
+    if sink is not None and seconds:
+        sink[name] = sink.get(name, 0.0) + seconds
 
 
 def count(name: str, n: int, sink: dict | None) -> None:
